@@ -8,21 +8,27 @@ index table (hand-written CUDA merge-path kernel) -> clamped-LCP scans
 build from ``kernels/csrc`` at first use; on CPU tensors every kernel runs
 its plain PyTorch version.
 
-This slice serves :func:`build` -> :func:`find` / :func:`find_batch` /
-:func:`matches` on one device; ``device=None`` means the CUDA card.
+Served so far, on one device: :func:`build` -> :func:`find` /
+:func:`find_batch` / :func:`matches`, and :func:`map_` / :func:`map_batch`
+for ``MapOpts(fill_gaps=False, call_variants=False)`` (the 3-bit rows sweep,
+a hand-written CUDA derandomize+translate kernel, candidate tables and
+delta-run assembly). ``device=None`` means the CUDA card.
 """
 
-from kbo_tpu_torch.opts import BuildOpts, FindOpts, MatchOpts
-from kbo_tpu_torch.api import build, find, find_batch, matches
+from kbo_tpu_torch.opts import BuildOpts, FindOpts, MapOpts, MatchOpts
+from kbo_tpu_torch.api import build, find, find_batch, map_, map_batch, matches
 from kbo_tpu_torch.ops.format import RLE
 
 __all__ = [
     "BuildOpts",
     "FindOpts",
+    "MapOpts",
     "MatchOpts",
     "RLE",
     "build",
     "find",
     "find_batch",
+    "map_",
+    "map_batch",
     "matches",
 ]

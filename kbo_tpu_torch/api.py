@@ -1,6 +1,6 @@
-"""Top-level API of the port: build, matches, find, find_batch
-(counterpart of kbo_tpu/api.py; reference: src/lib.rs:501-506 build,
-:612-628 matches, :808-821 find).
+"""Top-level API of the port: build, matches, find, find_batch, map_,
+map_batch (counterpart of kbo_tpu/api.py; reference: src/lib.rs:501-506
+build, :612-628 matches, :808-821 find, :720-761 map).
 
 Every query runs on ``device`` -- the CUDA card when it is None; pass
 ``device="cpu"`` to run the kernels' plain versions on the CPU.
@@ -8,12 +8,22 @@ Every query runs on ``device`` -- the CUDA card when it is None; pass
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from kbo_tpu_torch import engine, pipeline
 from kbo_tpu_torch.index.build import build_sbwt_from_seqs
 from kbo_tpu_torch.index.encode import encode_ascii
 from kbo_tpu_torch.index.sbwt import SbwtIndex
 from kbo_tpu_torch.ops import derandomize, format as fmt, translate
-from kbo_tpu_torch.opts import BuildOpts, FindOpts, MatchOpts
+from kbo_tpu_torch.kernels import mapsweep, ms as ms_kernels
+from kbo_tpu_torch.kernels.ms import _bucket
+from kbo_tpu_torch.opts import BuildOpts, FindOpts, MapOpts, MatchOpts
+from kbo_tpu_torch.refine.device_map import (
+    DevRefOverflow,
+    _pow2_cap,
+    map_devref_finish,
+)
 from kbo_tpu_torch.utils.stats import stage
 
 
@@ -84,3 +94,151 @@ def find_batch(query_seqs: list[bytes], sbwt, find_opts: FindOpts | None = None,
         fmt.run_lengths_gapped([chr(c) for c in chars], opts.max_gap_len)
         for chars in chars_list
     ]
+
+
+def max_tag(k: int) -> int:
+    """Largest contig count the tagged rk-vs-seq join of the device
+    refinement supports (a full tag word in chunk bits 29..0)."""
+    return 1 << 30
+
+
+def map_(ref_seq: bytes, query_sbwt: SbwtIndex,
+         map_opts: MapOpts | None = None, device=None) -> bytes:
+    """Map a query (as an index) onto reference coordinates
+    (reference: src/lib.rs:720-761). Role inversion: the QUERY is indexed and
+    the REFERENCE sequence is streamed through it. One-contig
+    :func:`map_batch`, whatever the input's size."""
+    return map_batch([bytes(ref_seq)], query_sbwt, map_opts, device=device)[0]
+
+
+def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
+              map_opts: MapOpts | None = None, mesh=None,
+              device=None) -> list[bytes]:
+    """Batched :func:`map_` over many reference contigs.
+
+    The 3-bit rows sweep + derandomize + translate for ALL contigs run on
+    the device, which also compacts the refinement candidates (MS drops, gap
+    runs); the dense chars/MS arrays never cross to the host. The output is
+    fetched as run-length deltas against the reference and painted on the
+    host (kernels/mapsweep.py, refine/device_map.py).
+
+    This slice serves ``MapOpts(fill_gaps=False, call_variants=False)``
+    with ``format`` true or false; the refinements raise
+    ``NotImplementedError``.
+    """
+    opts = map_opts or MapOpts()
+    if mesh is not None:
+        raise NotImplementedError(
+            "map_batch over a mesh: the multi-GPU layer is ROADMAP Queue 1 "
+            "item 8"
+        )
+    if opts.fill_gaps or opts.call_variants:
+        raise NotImplementedError(
+            "map_ with fill_gaps or call_variants: the device refinement "
+            "(kernels/refine.py) is ROADMAP Queue 1 item 4b; pass "
+            "MapOpts(fill_gaps=False, call_variants=False)"
+        )
+    if not ref_seqs:
+        return []
+    ref_seqs = [bytes(r) for r in ref_seqs]
+    k = query_sbwt.k
+    threshold = derandomize.random_match_threshold(
+        k, query_sbwt.n_kmers, 4, opts.max_error_prob
+    )
+    dev = engine.device_index(query_sbwt, device)
+    if k >= 128:
+        raise NotImplementedError(
+            "map_ at k >= 128 takes the 2-bit sweep (map_sweep_compact_core): "
+            "left out of ROADMAP Queue 1 item 4a"
+        )
+
+    # shapes come from the byte lengths alone (1 code per byte): the sweep
+    # codes are derived on the device from the reference upload
+    seq_lens = np.asarray([len(r) for r in ref_seqs], dtype=np.int32)
+    Q = len(ref_seqs)
+    if Q > max_tag(k):
+        raise NotImplementedError(
+            "map_batch beyond the tagged join's contig capacity takes the "
+            "packed-fetch host refinement: left out of ROADMAP Queue 1 "
+            "item 4a"
+        )
+    L = _bucket(int(seq_lens.max()))
+    # delta positions travel as int32 flat offsets (q * L + i)
+    assert Q * L < 2**31, "padded batch exceeds the int32 position space"
+
+    # The packed join caps table rows + probes at 2^24 slots; past that the
+    # sweep runs CHUNKED along the sequence with k-1 context (exact). Each
+    # chunk re-scans the key table, so the fewest equal chunks on the
+    # 1/8-octave bucket grid that fit the budget.
+    slot_budget = ms_kernels._PACKED_SLOT_LIMIT - int(dev.keys3.shape[1])
+    full_fits = Q * (L + k - 1) < slot_budget
+    # strictly under the budget, as the join asserts (n + T < limit)
+    max_chunk = (slot_budget - 1) // Q - (k - 1)
+    chunk = 0
+    if not full_fits:
+        n_chunks = max(1, -(-L // max(max_chunk, 1)))
+        chunk = min(_bucket(-(-L // n_chunks)), max_chunk)
+    use_chunked = 0 < chunk < L and chunk >= 4 * k
+    if not (full_fits or use_chunked):
+        raise NotImplementedError(
+            "map_batch of this many contigs against this index exceeds the "
+            "rows join's slot budget even chunked; the 2-bit sweep "
+            "(map_sweep_compact_core) is left out of ROADMAP Queue 1 item 4a"
+        )
+
+    with stage("map_sweep", bases=int(seq_lens.sum())):
+        # optimistic capacities: only a denser-than-expected input pays a
+        # second pass. Drops (SNP sites) run ~1/kb on same-species pairs;
+        # gap runs are rarer and cost more per slot in the refinement
+        cap_d = _pow2_cap(L // 1024)
+        cap_g = _pow2_cap(L // 1536, lo=256)
+
+        # ONE upload, 2-bit packed: the assembly needs the raw reference
+        # bytes, so ship 4 bases/byte + an exception list for every byte
+        # that is not uppercase ACGT, rebuild the exact raw matrix on the
+        # device and derive the sweep codes from it. Dense exceptions
+        # (soft-masked genomes) upload the raw matrix instead.
+        ref_mat = np.zeros((Q, L), dtype=np.uint8)
+        for q, r in enumerate(ref_seqs):
+            ref_mat[q, : len(r)] = np.frombuffer(r, dtype=np.uint8)
+        lengths_dev = torch.from_numpy(seq_lens).to(dev.device)
+        packed_up = mapsweep.pack_ascii_host(ref_mat, seq_lens)
+        if packed_up is not None:
+            ref_mat_dev, codes_dev = mapsweep.decode_packed4_encode_device(
+                *(torch.from_numpy(a).to(dev.device) for a in packed_up),
+                lengths_dev,
+            )
+        else:
+            ref_mat_dev = torch.from_numpy(ref_mat).to(dev.device)
+            codes_dev = mapsweep.encode_ascii_device(ref_mat_dev)
+
+        # the join stage is cap-independent: the capacity-overflow retry
+        # below re-runs only the postprocess stage
+        if use_chunked:
+            ms_dev, uniq_dev, rows_dev = mapsweep.ms3_rows_sweep_chunked(
+                dev.keys3, dev.lcs3, codes_dev, k, chunk,
+                ref_packed=dev.rows_packed,
+            )
+        else:
+            ms_dev, uniq_dev, rows_dev = mapsweep.ms3_rows_sweep(
+                dev.keys3, dev.lcs3, codes_dev, k, ref_packed=dev.rows_packed
+            )
+
+        # the gap-candidate window never exceeds k - threshold + 1
+        # positions (mapsweep.map_postprocess3_core docstring)
+        w_grid = max(k - threshold + 1, 1)
+        while True:
+            chars_dev, _packed, pieces = mapsweep.map_postprocess3_core(
+                ms_dev, uniq_dev, rows_dev, lengths_dev, k, threshold,
+                cap_d, cap_g, w_grid,
+            )
+            try:
+                return map_devref_finish(
+                    chars_dev, lengths_dev, pieces, ref_seqs, opts,
+                    cap_d, cap_g, total_gap_slack=cap_g * 2 + 64,
+                    ref_mat=ref_mat, ref_mat_dev=ref_mat_dev,
+                )
+            except DevRefOverflow as o:
+                # grow only the overflowed capacity
+                cap_d = max(cap_d, _pow2_cap(o.need_d))
+                cap_g = max(cap_g, _pow2_cap(o.need_g))

@@ -1,5 +1,6 @@
 """Batched matching statistics on the device via the sorted k-mer join
-(PyTorch; counterpart of kbo_tpu/kernels/ms.py, value path only).
+(PyTorch; counterpart of kbo_tpu/kernels/ms.py: the 2-bit value join and
+the 3-bit rows join).
 
 MS[i] = best over index rows s of min(lcp(window_i, s), cap_s), where lcp is
 the common colex prefix of packed 2-bit window keys (last char most
@@ -9,6 +10,11 @@ them, merges them with the presorted index table (:func:`merge_path`), runs
 one clamped-LCP scan per direction (:func:`clamp_scan`) and sorts back to
 position order. On CUDA tensors the merge and the scans are hand-written
 kernels; on CPU tensors they are their plain versions.
+
+The rows join (:func:`ms3_rows_core`) runs the same merge and scans over
+3-bit keys of ALL index rows ('$' has its own chunk value, so every cap is
+k) and also yields, per position, whether the matched suffix's colex
+interval has width 1 and which row it is -- what the map path needs.
 
 Key words are uint32 bit patterns in int32 tensors of shape ``[W, n]``
 (see kernels/sort.py).
@@ -23,7 +29,7 @@ import numpy as np
 import torch
 
 from kbo_tpu_torch.index.sbwt import SbwtIndex
-from kbo_tpu_torch.kernels.join import clamp_scan
+from kbo_tpu_torch.kernels.join import _common_chunks, clamp_scan
 from kbo_tpu_torch.kernels.sort import _radix_sort, merge_path, to_i32, u32
 
 INVALID = 255
@@ -37,6 +43,10 @@ _PACKED_SLOT_LIMIT = (1 << 24) - 1
 
 def w2_for_k(k: int) -> int:
     return (k + 15) // 16
+
+
+def w3_for_k(k: int) -> int:
+    return (k + 9) // 10
 
 
 def resolve_device(device=None) -> torch.device:
@@ -89,10 +99,7 @@ def pack_windows_2bit(buf: torch.Tensor, k: int):
     """
     T = buf.shape[0]
     c = (buf.to(torch.int64) - 1) & 3
-    valid = (buf >= 1) & (buf <= 4)
-    idx = torch.arange(T, dtype=torch.int32, device=buf.device)
-    last_bad = _doubling_cummax(torch.where(valid, -1, idx))
-    limit = torch.clamp(idx - last_bad, max=k)
+    limit = window_limits(buf, k)
     # word w is word 0 shifted 16w positions; the last word masks chunks at
     # distances >= k (bit-identical with the per-chunk formulation)
     w0 = torch.zeros(T, dtype=torch.int64, device=buf.device)
@@ -105,6 +112,71 @@ def pack_windows_2bit(buf: torch.Tensor, k: int):
     if k % 16:
         words[-1] = words[-1] & ((0xFFFFFFFF << (30 - 2 * jmax)) & 0xFFFFFFFF)
     return to_i32(torch.stack(words)), limit
+
+
+def pack_windows_3bit(buf: torch.Tensor, k: int, pad_chunk: int = 7):
+    """3-bit window keys ('$'/invalid/pre-start -> ``pad_chunk``) for every
+    position of a flat code buffer: int32 [W3, T], 10 chunks per word under
+    2 zero lead bits. Query sides pad with 7."""
+    T = buf.shape[0]
+    valid = (buf >= 1) & (buf <= 4)
+    c = torch.where(valid, buf.to(torch.int64), pad_chunk)
+    # word w = word 0 shifted 10w positions (see pack_windows_2bit);
+    # before-start positions read an all-pad word, and the last word masks
+    # distances >= k
+    w0 = torch.zeros(T, dtype=torch.int64, device=buf.device)
+    for j in range(min(10, k)):
+        w0 = w0 | (_shift_up_const(c, j, pad_chunk) << (27 - 3 * j))
+    padw = pad_chunk * 0o1111111111
+    words = [w0]
+    for w in range(1, w3_for_k(k)):
+        words.append(_shift_up_const(w0, 10 * w, padw))
+    jmax = (k - 1) % 10
+    if k % 10:
+        words[-1] = words[-1] & ((0xFFFFFFFF << (27 - 3 * jmax)) & 0x3FFFFFFF)
+    return to_i32(torch.stack(words))
+
+
+def window_limits(buf: torch.Tensor, k: int) -> torch.Tensor:
+    """int32 [T]: min(k, length of the valid-char run ending at p)."""
+    valid = (buf >= 1) & (buf <= 4)
+    idx = torch.arange(buf.shape[0], dtype=torch.int32, device=buf.device)
+    last_bad = _doubling_cummax(torch.where(valid, -1, idx))
+    return torch.clamp(idx - last_bad, max=k)
+
+
+_SCAN_BLOCK = 1024
+
+
+def _carry_nearest(v: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """Propagate the nearest source value (entries >= 0) to every slot,
+    inclusive. -1 marks non-source slots; slots with no source on the scan
+    side keep -1. Two-level (within-block doubling, a block-total scan, one
+    combine): take-first-set is associative."""
+    L = v.shape[0]
+
+    def shifted(x, s):
+        pad = torch.full(x.shape[:-1] + (s,), -1, dtype=x.dtype, device=x.device)
+        if reverse:
+            return torch.cat([x[..., s:], pad], dim=-1)
+        return torch.cat([pad, x[..., :-s]], dim=-1)
+
+    def flat(x):
+        s = 1
+        while s < x.shape[-1]:
+            x = torch.where(x >= 0, x, shifted(x, s))
+            s <<= 1
+        return x
+
+    if L <= 4 * _SCAN_BLOCK:
+        return flat(v)
+    S = _SCAN_BLOCK
+    B = -(-L // S)
+    pad = torch.full((B * S - L,), -1, dtype=v.dtype, device=v.device)
+    vb = flat(torch.cat([v, pad]).reshape(B, S))
+    tot = vb[:, 0] if reverse else vb[:, -1]  # nearest source per block
+    tot_x = flat(shifted(tot, 1))
+    return torch.where(vb >= 0, vb, tot_x[:, None]).reshape(B * S)[:L]
 
 
 # ------------------------------------------------------------ sort-join
@@ -158,7 +230,8 @@ def _neighbor_best(ref_words, ref_cap, q_words, q_meta, bits: int):
     return (back & 255).to(torch.int32)
 
 
-def _merge_scan(ref_words, ref_cap, q_words, q_meta, bits: int):
+def _merge_scan(ref_words, ref_cap, q_words, q_meta, bits: int,
+                q_aux=None, ref_packed=None):
     """Packed merge + directional clamped-LCP scans.
 
     Packs reference and query slots into the single payload (see
@@ -167,15 +240,27 @@ def _merge_scan(ref_words, ref_cap, q_words, q_meta, bits: int):
     directions (:func:`clamp_scan`). Returns (sw, spacked, f, b) in merged
     order. On CPU tensors the merge's plain version is the concat + radix
     sort of kbo_tpu's non-TPU branch, with the same merged order.
+
+    ``ref_packed`` (int32 [n]) is a reference payload packed ahead of time,
+    read in place of ``ref_cap``: its low byte is the cap, and its high 24
+    bits, the constant 0xFFFFFF otherwise, are room for per-row data to
+    ride the merge (kbo_tpu's ``ref_hi24``; see :func:`rows_ref_packed`).
+    ``q_aux`` (int32 [L]) rides the query sort, and the return grows
+    to (sw, spacked, f, b, (q_sorted_words, q_aux_sorted)): the query-side
+    sorted table, free here because the merge needs the query side sorted.
     """
-    ref_packed = to_i32(0xFFFFFF00 | u32(ref_cap))
+    if ref_packed is None:
+        ref_packed = to_i32(0xFFFFFF00 | u32(ref_cap))
     q_packed = to_i32((q_meta.to(torch.int64) << 8) | 0xFF)
-    qs, (qp,) = _radix_sort(q_words, [q_packed])
-    sw, spacked = merge_path(ref_words.contiguous(), ref_packed, qs, qp)
+    pays = [q_packed] if q_aux is None else [q_packed, q_aux]
+    qs, qpays = _radix_sort(q_words, pays)
+    sw, spacked = merge_path(ref_words.contiguous(), ref_packed, qs, qpays[0])
     capbyte = spacked & 0xFF
     cap = torch.where(capbyte == 0xFF, -1, capbyte)
     f = clamp_scan(sw, cap, bits, reverse=False)
     b = clamp_scan(sw, cap, bits, reverse=True)
+    if q_aux is not None:
+        return sw, spacked, f, b, (qs, qpays[1])
     return sw, spacked, f, b
 
 
@@ -193,26 +278,159 @@ def ms2_core(keys2, cap2, buf, k: int):
     return torch.minimum(c, limit)
 
 
-class DeviceIndex:
-    """An SbwtIndex's 2-bit sort-join tables resident on a device.
+def ms3_core(keys3, buf, k: int):
+    """MS values for every buffer position via the 3-bit (all-rows) join."""
+    q_words = pack_windows_3bit(buf, k)
+    meta = torch.arange(buf.shape[0], dtype=torch.int32, device=buf.device)
+    cap = torch.full((keys3.shape[1],), k, dtype=torch.int32, device=buf.device)
+    c = _neighbor_best(keys3, cap, q_words, meta, bits=3)
+    return torch.clamp(c, max=k)
 
-    The host-built ``keys2`` / ``cap2`` are uploaded as they are (kbo_tpu's
-    ``KBO_TPU_UPLOAD_INDEX=1`` branch); the on-device table rebuild and the
-    3-bit tables come with later slices of the port.
+
+def lcs3_from_keys3(keys3, k: int):
+    """int32 [n] longest common suffix (in chars, capped at k) between
+    colex-adjacent rows; entry 0 is 0. One elementwise pass over the keys
+    (the reference's LcsArray semantics, derived from the key table)."""
+    prev = torch.cat([~keys3[:, :1], keys3[:, :-1]], dim=1)
+    # row 0's synthetic predecessor differs in the top bits, where the clz
+    # chunk arithmetic yields -1; clamp to the true "no common suffix" 0
+    return torch.clamp(_common_chunks(keys3, prev, 3), 0, k)
+
+
+def rows_ref_packed(lcs3, k: int):
+    """The rows join's reference payload, static per index:
+    ``(lcs3 | lcs3_up << 7) << 8 | min(k, 254)`` with ``lcs3_up[i] =
+    lcs3[i + 1]`` (0 past the table). kbo_tpu caches padded DMA streams of
+    the same data (``get_rows_merge_streams``); the CUDA merge reads the
+    key table in place and needs only this payload."""
+    lcs = lcs3.to(torch.int64)
+    lcs_up = torch.cat([lcs[1:], torch.zeros_like(lcs[:1])])
+    return to_i32(((lcs | (lcs_up << 7)) << 8) | min(k, 254))
+
+
+def _rows_scan_pieces(keys3, lcs3, buf, k: int, want_qtable: bool = False,
+                      ref_packed=None):
+    """Shared merge + scans of the rows join: per merged slot, the
+    directional clamped LCPs, the nearest-left row index, and the
+    adjacent-row LCS values at the prospective block edges.
+
+    The adjacent-row LCS pair rides the merge in the reference slots'
+    otherwise-constant high payload bits (k < 128 so each value fits 7
+    bits): down = lcs3[row] (common suffix with the row below), up =
+    lcs3[row + 1] (with the row above; 0 past the table). The
+    nearest-source carry scans resolve a missing side to 0 = "no row beyond
+    the table edge"; left/right-best themselves imply a source row exists.
+    """
+    n = keys3.shape[1]
+    T = buf.shape[0]
+    assert n + T < (1 << 24) - 1, "packed path requires < 16.7M slots"
+    assert k < 128, "ms rides 7 bits of the back-sort payload"
+    if ref_packed is None:
+        ref_packed = rows_ref_packed(lcs3, k)
+    q_words = pack_windows_3bit(buf, k)
+    meta = torch.arange(T, dtype=torch.int32, device=buf.device)
+    out = _merge_scan(
+        keys3, None, q_words, meta, 3, ref_packed=ref_packed,
+        q_aux=window_limits(buf, k) if want_qtable else None,
+    )
+    sw, spacked, f, b = out[:4]
+    qtable = out[4] if want_qtable else None
+    is_ref = (spacked & 0xFF) != 0xFF
+    # nearest reference row on each side (colex index = rank among rows);
+    # with uniform caps the nearest row attains the best lcp, so the side
+    # with the strictly larger lcp holds the matched block's edge row
+    xl = torch.cumsum(is_ref, dim=0, dtype=torch.int32) - 1
+    down_slot = torch.where(is_ref, (spacked >> 8) & 0x7F, -1)
+    up_slot = torch.where(is_ref, (spacked >> 15) & 0x7F, -1)
+    near_down = torch.clamp(_carry_nearest(down_slot, reverse=False), min=0)
+    near_up = torch.clamp(_carry_nearest(up_slot, reverse=True), min=0)
+    return sw, spacked, is_ref, f, b, xl, near_down, near_up, qtable
+
+
+def ms3_rows_core(keys3, lcs3, buf, k: int, want_qtable: bool = False,
+                  ref_packed=None):
+    """(ms, uniq, row) for EVERY buffer position via ONE 3-bit join.
+
+    The colex interval of position i's matched suffix (length ms[i]) has
+    width 1 iff, around the query key's insertion point, exactly one
+    adjacent row shares a length-ms[i] prefix and the block does not extend
+    past it -- an LCS-array identity (the block of rows sharing a depth-m
+    prefix is delimited by lcs < m).
+
+    Returns (ms int32 [T] in [0, k], uniq bool [T], row int32 [T] = the
+    colex row of the unique match, valid where uniq). ``want_qtable``
+    appends the sorted query-side window keys + per-window caps ((words,
+    limits), see :func:`_merge_scan`). ``ref_packed`` is the index's cached
+    :func:`rows_ref_packed`.
+    """
+    sw, spacked, is_ref, f, b, xl, near_down, near_up, qtable = (
+        _rows_scan_pieces(keys3, lcs3, buf, k, want_qtable, ref_packed)
+    )
+    n = keys3.shape[1]
+    T = buf.shape[0]
+    f = torch.clamp(f, max=k)
+    b = torch.clamp(b, max=k)
+    ms_slot = torch.clamp(torch.maximum(f, b), min=0)
+    left_best = f > b
+    right_best = b > f
+    x = torch.where(left_best, xl, xl + 1)
+    lcsv = torch.where(left_best, near_down, near_up)
+    uniq_slot = (
+        (ms_slot > 0) & (left_best | right_best) & (lcsv < ms_slot)
+        & (x >= 0) & (x < n)
+    )
+    # back to query order: every buffer position owns exactly one query
+    # slot, so a scatter by slot id (reference slots go to a spare entry)
+    # stands for kbo_tpu's single-key back-sort; the payload packs
+    # (row 24b | ms 7b | uniq 1b)
+    dest = torch.where(is_ref, T, (spacked >> 8) & 0xFFFFFF).to(torch.int64)
+    payload = to_i32(
+        (torch.clamp(x, 0, n - 1).to(torch.int64) << 8)
+        | (ms_slot << 1) | uniq_slot
+    )
+    out = torch.zeros(T + 1, dtype=torch.int32, device=buf.device)
+    out.scatter_(0, dest, payload)
+    out = out[:T]
+    ms = (out >> 1) & 0x7F
+    uniq = (out & 1).to(torch.bool)
+    row = (out >> 8) & 0xFFFFFF
+    if want_qtable:
+        return ms, uniq, row, qtable
+    return ms, uniq, row
+
+
+class DeviceIndex:
+    """An SbwtIndex's sort-join tables resident on a device.
+
+    The host-built ``keys2`` / ``cap2`` / ``keys3`` are uploaded as they are
+    (kbo_tpu's ``KBO_TPU_UPLOAD_INDEX=1`` branch; the on-device table
+    rebuild comes with a later slice of the port). ``lcs3`` and the rows
+    join's static reference payload ``rows_packed`` derive from ``keys3``
+    once per index.
     """
 
     def __init__(self, index: SbwtIndex, device=None):
         if index.keys2 is None:
             raise ValueError("index built without join keys")
         self.device = resolve_device(device)
-        keys2 = np.ascontiguousarray(index.keys2, dtype=np.uint32)
-        self.keys2 = torch.from_numpy(keys2.view(np.int32)).to(self.device)
-        self.cap2 = torch.from_numpy(
-            np.ascontiguousarray(index.cap2, dtype=np.int32)
-        ).to(self.device)
         self.n_rows = int(index.n_rows)
         self.n_kmers = int(index.n_kmers)
         self.k = int(index.k)
+
+        def put(table, dtype):
+            table = np.ascontiguousarray(table, dtype=dtype)
+            if dtype is np.uint32:
+                table = table.view(np.int32)
+            return torch.from_numpy(table).to(self.device)
+
+        self.keys2 = put(index.keys2, np.uint32)
+        self.cap2 = put(index.cap2, np.int32)
+        self.keys3 = put(index.keys3, np.uint32)
+        self.lcs3 = lcs3_from_keys3(self.keys3, self.k)
+        # k >= 128 has no rows join (the payload carries 7-bit LCS values)
+        self.rows_packed = (
+            rows_ref_packed(self.lcs3, self.k) if self.k < 128 else None
+        )
 
 
 def _bucket(n: int, lo: int = 1024) -> int:

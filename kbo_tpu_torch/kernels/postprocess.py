@@ -19,8 +19,12 @@ skipped: skip alternates inside maximal runs, found with one cummax.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from kbo_tpu_torch.kernels import _build
 from kbo_tpu_torch.kernels.ms import _doubling_cummax
 
 # alignment characters encoded as ASCII uint8
@@ -174,6 +178,71 @@ def translate_core(derand: torch.Tensor, k: int, threshold: int,
     ).to(torch.uint8)
     out = torch.where(skip, _R, base).to(torch.uint8)
     return out[0] if one else out
+
+
+def derandomize_translate_plain(ms: torch.Tensor, k: int, threshold: int,
+                                true_len=None) -> torch.Tensor:
+    """Plain version of :func:`derandomize_translate`: the two cores as they
+    stand (positions past a row's true length hold garbage, not 0)."""
+    return translate_core(
+        derandomize_core(ms, k, threshold, true_len), k, threshold, true_len
+    )
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("derand_translate")
+    n, p, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    lib.kbo_derand_translate_tiles.argtypes = [n]
+    lib.kbo_derand_translate_tiles.restype = n
+    lib.kbo_derand_translate.argtypes = [p, n, p, n, n, i, i, p, p, p, p]
+    lib.kbo_derand_translate.restype = ctypes.c_int
+    return lib
+
+
+def derandomize_translate(ms: torch.Tensor, k: int, threshold: int,
+                          true_len=None) -> torch.Tensor:
+    """Alignment chars uint8 [Q, L] of noisy MS rows int32 [Q, L]:
+    ``translate_core(derandomize_core(ms, ...), ...)`` in one pass, equal to
+    it at every position below each row's ``true_len`` ([Q] or scalar; L
+    when None). A 1-D input is one row.
+
+    CUDA tensors launch ``csrc/derand_translate.cu``, the counterpart of the
+    TPU kernel ``attic/pallas_postprocess.py::fused_postprocess_core``; it
+    writes 0 at and past ``true_len``. CPU tensors take
+    :func:`derandomize_translate_plain`. Rows may be strided views (a row
+    stride, unit stride inside a row).
+    """
+    if ms.device.type == "cpu":
+        return derandomize_translate_plain(ms, k, threshold, true_len)
+    L = ms.shape[-1]
+    rows, tl, one = _as_rows(ms, true_len, L)
+    if rows.dtype != torch.int32:
+        raise TypeError("derandomize_translate wants int32 ms")
+    if rows.dim() != 2:
+        raise ValueError("derandomize_translate wants ms [Q, L] or [L]")
+    if L > 1 and rows.stride(1) != 1:
+        raise ValueError("derandomize_translate wants unit stride in a row")
+    Q = rows.shape[0]
+    tl = tl.reshape(Q).contiguous()
+    device = ms.device
+    lib = _lib()
+    n_tiles = lib.kbo_derand_translate_tiles(L)
+    tot = torch.empty(4 * Q * n_tiles, dtype=torch.int32, device=device)
+    carry = torch.empty(4 * Q * n_tiles, dtype=torch.int32, device=device)
+    out = torch.empty((Q, L), dtype=torch.uint8, device=device)
+    with torch.cuda.device(device):
+        err = lib.kbo_derand_translate(
+            rows.data_ptr(), rows.stride(0) if Q > 1 else L, tl.data_ptr(),
+            Q, L, k, int(threshold), tot.data_ptr(), carry.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        )
+    _build.check(err, "derandomize_translate")
+    derandomize_translate.launches += 1
+    return out[0] if one else out
+
+
+derandomize_translate.launches = 0
 
 
 # ------------------------------------------------------- device RLE (find)

@@ -5,6 +5,7 @@ Mirrors the reference module (reference: src/format.rs):
 - :class:`RLE`                (src/format.rs:18-33)
 - :func:`run_lengths`         (src/format.rs:98-102)
 - :func:`run_lengths_gapped`  (src/format.rs:143-193)
+- :func:`relative_to_ref`     (src/format.rs:266-287)
 
 Note the reference RLE doc comment claims 1-based positions but the code emits
 0-based start with half-open end (src/format.rs:93-94); the CLI layer adds +1.
@@ -105,3 +106,24 @@ def run_lengths_gapped(aln, max_gap_len: int) -> list[RLE]:
                 break
         segments.append(seg)
     return segments
+
+
+def relative_to_ref(ref_seq: bytes, alignment) -> bytes:
+    """Nucleotide sequence of the alignment relative to the reference
+    (reference: src/format.rs:266-287): M/R/I -> ref char, X/D/- -> '-',
+    anything else (nucleotides from refinement) passes through."""
+    ref = np.frombuffer(bytes(ref_seq), dtype=np.uint8)
+    if isinstance(alignment, np.ndarray) and alignment.dtype == np.uint8:
+        aln = alignment
+    else:
+        aln = np.frombuffer(
+            "".join(_as_chars(alignment)).encode("latin-1"), dtype=np.uint8
+        )
+    m = min(ref.size, aln.size)
+    ref, aln = ref[:m], aln[:m]
+    out = aln.copy()
+    take_ref = (aln == ord("M")) | (aln == ord("R")) | (aln == ord("I"))
+    dash = (aln == ord("X")) | (aln == ord("D")) | (aln == ord("-"))
+    out[take_ref] = ref[take_ref]
+    out[dash] = ord("-")
+    return out.tobytes()

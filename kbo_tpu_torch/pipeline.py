@@ -16,9 +16,8 @@ import torch
 from kbo_tpu_torch.index.sbwt import SbwtIndex
 from kbo_tpu_torch.kernels.ms import INVALID, _bucket as _kernel_bucket, ms2_core
 from kbo_tpu_torch.kernels.postprocess import (
-    derandomize_core,
+    derandomize_translate,
     rle_segments_global_core,
-    translate_core,
 )
 from kbo_tpu_torch.ops.format import RLE
 
@@ -38,14 +37,13 @@ def matches_pipeline_core(keys2, cap2, codes, lengths, k: int, threshold: int):
     """codes: uint8 [Q, L] (tail-padded with INVALID); lengths: int32 [Q].
 
     Returns (chars uint8 [Q, L], ms int32 [Q, L]). Positions past each
-    query's length are garbage; mask with lengths.
+    query's length are not results (garbage on the CPU, 0 from the CUDA
+    kernel); mask with lengths.
     """
     Q, L = codes.shape
     buf = _make_buf(codes, k)
     ms = _flat_ms_to_batch(ms2_core(keys2, cap2, buf, k), Q, L, k)
-    derand = derandomize_core(ms, k, threshold, lengths)
-    chars = translate_core(derand, k, threshold, lengths)
-    return chars, ms
+    return derandomize_translate(ms, k, threshold, lengths), ms
 
 
 def _bucket(n: int, lo: int = 64) -> int:

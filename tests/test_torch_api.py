@@ -23,8 +23,8 @@ def _rows(rles):
 
 def test_exports():
     assert set(kbo_tpu_torch.__all__) == {
-        "BuildOpts", "FindOpts", "MatchOpts", "RLE", "build", "find",
-        "find_batch", "matches",
+        "BuildOpts", "FindOpts", "MapOpts", "MatchOpts", "RLE", "build",
+        "find", "find_batch", "map_", "map_batch", "matches",
     }
 
 

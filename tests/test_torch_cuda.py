@@ -13,6 +13,10 @@ import torch
 import kbo_tpu_torch
 from kbo_tpu_torch.index.encode import encode_ascii
 from kbo_tpu_torch.kernels.join import clamp_scan, clamp_scan_plain
+from kbo_tpu_torch.kernels.postprocess import (
+    derandomize_translate,
+    derandomize_translate_plain,
+)
 from kbo_tpu_torch.kernels.sort import (
     _radix_sort,
     merge_path,
@@ -80,9 +84,74 @@ def test_find_batch_on_card_equals_cpu(cuda):
             q[p] = BASES[rng.integers(0, 4)]
         queries.append(bytes(q))
     merge_path.launches = clamp_scan.launches = 0
+    derandomize_translate.launches = 0
     got = kbo_tpu_torch.find_batch(queries, idx, device=cuda)
     assert merge_path.launches == 1 and clamp_scan.launches == 2
+    assert derandomize_translate.launches == 1
     assert got == kbo_tpu_torch.find_batch(queries, idx, device="cpu")
     one = kbo_tpu_torch.matches(queries[0], idx, device=cuda)
     assert one == kbo_tpu_torch.matches(queries[0], idx, device="cpu")
     assert encode_ascii(queries[0]).size == len(one)
+
+
+@pytest.mark.parametrize("Q,L", [(1, 1), (1, 1024), (3, 5000), (512, 300),
+                                 (2, 1024 * 6 + 17)])
+@pytest.mark.parametrize("lipschitz", [True, False])
+def test_derandomize_translate_kernel(cuda, Q, L, lipschitz):
+    """Bit-equal to the plain version below each row's true length, 0 at
+    and past it; row lengths 0, 1, 2, L and one on a tile edge."""
+    rng = np.random.default_rng(Q * L + lipschitz)
+    k, t = 51, 19
+    if lipschitz:
+        steps = rng.choice(np.array([1, 1, 1, 0, -5, -40]), (Q, L))
+        ms = np.clip(np.cumsum(steps, axis=1) % (k + 9), 0, k).astype(np.int32)
+    else:
+        ms = rng.integers(-3, k + 3, (Q, L)).astype(np.int32)
+    lengths = rng.integers(0, L + 1, Q).astype(np.int32)
+    edge = [L, 0, 1, 2, 1024, 2048]
+    lengths[: min(Q, len(edge))] = np.minimum(edge, L)[: min(Q, len(edge))]
+    ms_d = torch.from_numpy(ms).to(cuda)
+    tl_d = torch.from_numpy(lengths).to(cuda)
+    before = derandomize_translate.launches
+    got = derandomize_translate(ms_d, k, t, tl_d)
+    torch.cuda.synchronize()
+    assert derandomize_translate.launches == before + 1
+    want = derandomize_translate_plain(ms_d, k, t, tl_d)
+    in_len = torch.arange(L, device=cuda)[None, :] < tl_d[:, None]
+    assert got.dtype == torch.uint8 and got.shape == (Q, L)
+    assert torch.equal(got[in_len], want[in_len])
+    assert not got[~in_len].any()
+    # rows as strided views (the find pipeline's [Q, k-1+L] buffer)
+    wide = torch.zeros((Q, L + 50), dtype=torch.int32, device=cuda)
+    wide[:, 50:] = ms_d
+    assert torch.equal(derandomize_translate(wide[:, 50:], k, t, tl_d), got)
+
+
+def test_derandomize_translate_rejects(cuda):
+    ms = torch.zeros((2, 64), dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        derandomize_translate(ms, 31, 11)
+    with pytest.raises(ValueError):
+        derandomize_translate(ms.to(torch.int32)[:, ::2], 31, 11)
+
+
+@pytest.mark.parametrize("fmt", [True, False])
+def test_map_on_card_equals_cpu(cuda, fmt):
+    rng = np.random.default_rng(6)
+    query = bytearray(BASES[rng.integers(0, 4, 30_000)].tobytes())
+    ref = bytearray(query)
+    for p in range(300, 29_000, 700):
+        ref[p] = BASES[(np.searchsorted(BASES, ref[p]) + 1) % 4]
+    del ref[15_000:15_020]
+    ref[5000:5010] = b"N" * 10
+    idx = kbo_tpu_torch.build([bytes(query)], kbo_tpu_torch.BuildOpts(k=31))
+    opts = kbo_tpu_torch.MapOpts(fill_gaps=False, call_variants=False, format=fmt)
+    contigs = [bytes(ref[:12_000]), bytes(ref[12_000:12_020]), bytes(ref[12_020:])]
+    merge_path.launches = clamp_scan.launches = 0
+    derandomize_translate.launches = 0
+    got = kbo_tpu_torch.map_batch(contigs, idx, opts, device=cuda)
+    assert merge_path.launches == 1 and clamp_scan.launches == 2
+    assert derandomize_translate.launches == 1
+    assert got == kbo_tpu_torch.map_batch(contigs, idx, opts, device="cpu")
+    one = kbo_tpu_torch.map_(contigs[0], idx, opts, device=cuda)
+    assert one == got[0]

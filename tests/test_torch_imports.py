@@ -28,6 +28,8 @@ def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "kbo_tpu_torch/kernels/ms.py" in names
     assert "kbo_tpu_torch/api.py" in names
+    assert "kbo_tpu_torch/kernels/mapsweep.py" in names
+    assert "kbo_tpu_torch/refine/device_map.py" in names
     assert "chip_smoke.py" in names
 
 

@@ -159,3 +159,88 @@ def test_rle_capacity_retry():
             dataclasses.asdict(r) for r in want
         ]
     assert sum(len(r) for r in got) > 128
+
+
+# ------------------------------------------- derandomize + translate as one
+
+
+def _random_rows(rng, Q, L, k, lipschitz):
+    lengths = rng.integers(0, L + 1, Q).astype(np.int32)
+    lengths[: min(Q, 4)] = [L, 0, 1, 2][: min(Q, 4)]
+    if lipschitz:
+        return _lipschitz_rows(rng, lengths, L, k), lengths
+    # arbitrary integers: the descriptor algebra must hold here too
+    return rng.integers(-3, k + 3, (Q, L)).astype(np.int32), lengths
+
+
+@pytest.mark.parametrize("lipschitz", [True, False])
+@pytest.mark.parametrize("seed", range(3))
+def test_derandomize_translate_plain_equal(seed, lipschitz):
+    """The plain version of the fused kernel is kbo_tpu's two cores
+    composed; on CPU tensors the wrapper takes it."""
+    rng = np.random.default_rng(40 + seed)
+    k = int(rng.integers(5, 64))
+    t = int(rng.integers(2, k))
+    noisy, lengths = _random_rows(rng, 9, 300, k, lipschitz)
+    _, want_c = _jax_rows(
+        jnp.asarray(noisy), jnp.asarray(lengths), jnp.int32(k), jnp.int32(t)
+    )
+    ms, tl = torch.from_numpy(noisy), torch.from_numpy(lengths)
+    got = tpp.derandomize_translate_plain(ms, k, t, tl)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_c))
+    launches = tpp.derandomize_translate.launches
+    assert torch.equal(tpp.derandomize_translate(ms, k, t, tl), got)
+    assert tpp.derandomize_translate.launches == launches  # no kernel here
+    one = tpp.derandomize_translate(ms[0], k, t)
+    assert one.shape == (300,) and torch.equal(one, got[0])
+
+
+def _stencil_chars(d, k, t, tl):
+    """Translate as the CUDA kernel computes it: a stencil on d[p-1], d[p],
+    d[p+1] with the row-edge rules and the second 'R' of a pair read off
+    the previous position directly (no run-parity scan). One row, numpy."""
+    out = np.zeros(d.size, np.uint8)
+    for i in range(min(tl, d.size)):
+        prev = d[i - 1] if i > 1 else k
+        nxt = d[i + 1] if i < tl - 1 else d[i]
+        rr = d[i] > t and 0 < nxt < t
+        second = 1 < i < tl - 1 and prev > t and 0 < d[i] < t
+        if rr or second:
+            out[i] = ord("R")
+        elif d[i] > 0:
+            out[i] = ord("M")
+        else:
+            out[i] = ord("X") if (nxt == 1 and prev > 0) else ord("-")
+    return out
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_pair_skip_needs_no_scan(seed):
+    """``skip == A`` over random integer rows: rr never holds at two
+    adjacent positions, so the run-parity cummax of translate_core selects
+    every position of A, and the stencil form gives the same characters."""
+    rng = np.random.default_rng(60 + seed)
+    k = int(rng.integers(4, 40))
+    t = int(rng.integers(2, k))  # below 2 no value lies strictly in (0, t)
+    Q, L = 50, 64
+    d = rng.integers(-2, k + 2, (Q, L)).astype(np.int32)
+    lengths = rng.integers(0, L + 1, Q).astype(np.int32)
+    dt = torch.from_numpy(d)
+    tl = torch.from_numpy(lengths)[:, None]
+    idx = torch.arange(L, dtype=torch.int32)
+    nxt = torch.where(idx < tl - 1, torch.roll(dt, -1, dims=-1), dt)
+    rr = (dt > t) & (nxt > 0) & (nxt < t)
+    assert not (rr[:, 1:] & rr[:, :-1]).any()
+    rr_prev = torch.roll(rr, 1, dims=-1)
+    rr_prev[:, 0] = False
+    A = (idx > 1) & (idx < tl - 1) & rr_prev
+    assert A.any()
+    chars = tpp.translate_core(dt, k, t, torch.from_numpy(lengths))
+    # skip is where the output is 'R' without rr: exactly A
+    assert torch.equal((chars == ord("R")) & ~rr, A & ~rr)
+    chars = chars.numpy()
+    for q in range(Q):
+        n = int(lengths[q])
+        np.testing.assert_array_equal(
+            _stencil_chars(d[q], k, t, n)[:n], chars[q, :n]
+        )
