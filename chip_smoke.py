@@ -17,14 +17,16 @@ Phases, each printed as it passes; any failure exits non-zero:
    from default_rng(42) with a SNP per kb and sparse 3-base deletions,
    k=51): find-core (ms2_core -> derandomize_translate over the streamed
    sequence) and serving (api.find_batch on a 512 x 4096 batch), with the
-   kernels' launch counts read around this phase alone; outputs must equal
+   kernels' launch counts read around each of the two calls alone (and the
+   kernel held against its plain version on find-core's own full-length
+   row); outputs must equal
    the port's own device="cpu" run of the same calls (the CPU run of
    find-core takes the first quarter of the sequence);
 5. the map slice at full size on the same pair: api.map_ with
    MapOpts(fill_gaps=False, call_variants=False), format true and false,
    one 8-contig api.map_batch, and the chunked sweep against the
-   single-shot one, launch counts read around this phase alone; outputs
-   must equal the port's own device="cpu" run byte for byte;
+   single-shot one, launch counts read around each entry-point call alone;
+   outputs must equal the port's own device="cpu" run byte for byte;
 6. times on the card (CUDA events or the host clock, medians of 7; by
    stage), each with the card's name and power limit, then one
    torch.profiler run of each workload: device busy share and the kernels
@@ -295,9 +297,7 @@ def main() -> int:
     batch_tl = torch.full((QN,), QL, dtype=torch.int32, device=cuda)
     check_dt(f"real MS batch {QN}x{ms_batch.shape[1]} (strided rows)",
              ms_batch, batch_tl)
-    ms_row = mapsweep.ms3_rows_sweep(
-        dev.keys3, dev.lcs3, mcodes, K, ref_packed=dev.rows_packed
-    )[0]
+    ms_row = mapsweep.ms3_rows_sweep(dev.keys3, dev.rows_packed, mcodes, K)[0]
     map_tl = torch.tensor([n], dtype=torch.int32, device=cuda)
     check_dt(f"real MS row 1x{Lm} true_len={n}", ms_row, map_tl)
     for lip in (True, False):
@@ -326,7 +326,11 @@ def main() -> int:
         for fn in counters.values():
             fn.launches = 0
 
+    # launches of each entry-point call, read around that call alone
+    launches = {}
+
     def read_counts(path):
+        torch.cuda.synchronize()
         got = {name: fn.launches for name, fn in counters.items()}
         for name, cnt in got.items():
             if cnt == 0:
@@ -342,14 +346,25 @@ def main() -> int:
     def serve(device):
         return api.find_batch(q_list, index, FindOpts(), device=device)
 
-    reset_counts()
+    T = buf.shape[0]
     t0 = time.perf_counter()
+    reset_counts()
     ms_gpu, chars_gpu = find_core(buf, dev.keys2, dev.cap2)
+    launches["find-core"] = read_counts("find-core")
+    reset_counts()
     rle_gpu = serve(cuda)
-    torch.cuda.synchronize()
-    launches_find = read_counts("find")
+    launches["find_batch"] = read_counts("find_batch")
     print(f"find path on the card: {time.perf_counter() - t0:.2f}s "
-          f"(first run), launches {json.dumps(launches_find)}", flush=True)
+          f"(first runs), launches per call {json.dumps(launches)}", flush=True)
+    # the kernel at the shape find-core gives it (one flat row, true length
+    # = the whole buffer), against its plain version and against the path's
+    # own output
+    check_dt(f"find-core 1-D row L={T} true_len={T}", ms_gpu, T)
+    if not torch.equal(
+        chars_gpu, derandomize_translate_plain(ms_gpu, K, threshold, T)
+    ):
+        raise SystemExit("FAIL find-core chars differ from the plain version "
+                         "at full length")
 
     # the CPU run of find-core takes the first quarter of the sequence (the
     # map phase below holds the card against the CPU at the full length)
@@ -394,21 +409,23 @@ def main() -> int:
 
     step = n // 8
     contigs = [ref[i * step : i * step + min(500_000, step)] for i in range(8)]
-    reset_counts()
     t0 = time.perf_counter()
-    map_gpu = {fmt: api.map_(ref, index, mopts(fmt), device=cuda)
-               for fmt in (True, False)}
+    map_gpu = {}
+    for fmt in (True, False):
+        reset_counts()
+        map_gpu[fmt] = api.map_(ref, index, mopts(fmt), device=cuda)
+        launches[f"map_ format={fmt}"] = read_counts(f"map_ format={fmt}")
+    reset_counts()
     batch_gpu = api.map_batch(contigs, index, mopts(True), device=cuda)
-    chunked = mapsweep.ms3_rows_sweep_chunked(
-        dev.keys3, dev.lcs3, mcodes, K, 1_000_000, ref_packed=dev.rows_packed
-    )
-    single = mapsweep.ms3_rows_sweep(
-        dev.keys3, dev.lcs3, mcodes, K, ref_packed=dev.rows_packed
-    )
+    launches["map_batch"] = read_counts("map_batch")
     torch.cuda.synchronize()
-    launches_map = read_counts("map")
     print(f"map path on the card: {time.perf_counter() - t0:.2f}s (first "
-          f"run), launches {json.dumps(launches_map)}", flush=True)
+          f"runs), launches per call {json.dumps(launches)}", flush=True)
+    # the chunked sweep against the single-shot one, outside the counts
+    chunked = mapsweep.ms3_rows_sweep_chunked(
+        dev.keys3, dev.rows_packed, mcodes, K, 1_000_000
+    )
+    single = mapsweep.ms3_rows_sweep(dev.keys3, dev.rows_packed, mcodes, K)
     uq = single[1]
     if not (torch.equal(chunked[0], single[0]) and torch.equal(chunked[1], uq)
             and torch.equal(chunked[2][uq], single[2][uq])):
@@ -466,7 +483,6 @@ def main() -> int:
             ts.append((time.perf_counter() - t) * 1e3)
         return statistics.median(ts)
 
-    T = buf.shape[0]
     t_find = dev_ms(lambda: find_core(buf, dev.keys2, dev.cap2))
     print(f"{tag} find-core: {t_find:.3f} ms ({n / t_find * 1e3 / 1e6:.2f} "
           f"Mbases/s) over {n} bases", flush=True)
@@ -522,9 +538,7 @@ def main() -> int:
         raise SystemExit("FAIL packed upload decodes to other codes")
 
     def sweep():
-        return mapsweep.ms3_rows_sweep(
-            dev.keys3, dev.lcs3, codes_dev, K, ref_packed=dev.rows_packed
-        )
+        return mapsweep.ms3_rows_sweep(dev.keys3, dev.rows_packed, codes_dev, K)
 
     def post():
         return mapsweep.map_postprocess3_core(
@@ -661,19 +675,20 @@ def main() -> int:
     }
     out = []
     for name, (fname, replaces) in sources.items():
-        def entry(label, launches):
+        def entry(label, count):
             t_k, t_p, t_b, t_l, shape = rows[label][name]
-            return {"launches": launches, "ms": t_k, "plain_ms": t_p,
+            return {"launches": count, "ms": t_k, "plain_ms": t_p,
                     "bound_ms": t_b, "bound_by": "bytes", "library_ms": t_l,
                     "shape": f"{label}: {shape}"}
 
-        # the numbers of the newest path (map); the find path's beside them
+        # the numbers of the newest path (one map_ call); the find paths'
+        # beside them, each with the launches of its own one call
         out.append({
             "name": name, "route": "cuda", "source": src + fname,
             "replaces": replaces, "max_abs_err": errs[name],
-            **entry("map", launches_map[name]),
-            "other_paths": [entry("find-core", launches_find[name]),
-                            entry("batch", launches_find[name])],
+            **entry("map", launches["map_ format=True"][name]),
+            "other_paths": [entry("find-core", launches["find-core"][name]),
+                            entry("batch", launches["find_batch"][name])],
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

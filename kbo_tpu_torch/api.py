@@ -216,12 +216,11 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
         # below re-runs only the postprocess stage
         if use_chunked:
             ms_dev, uniq_dev, rows_dev = mapsweep.ms3_rows_sweep_chunked(
-                dev.keys3, dev.lcs3, codes_dev, k, chunk,
-                ref_packed=dev.rows_packed,
+                dev.keys3, dev.rows_packed, codes_dev, k, chunk
             )
         else:
             ms_dev, uniq_dev, rows_dev = mapsweep.ms3_rows_sweep(
-                dev.keys3, dev.lcs3, codes_dev, k, ref_packed=dev.rows_packed
+                dev.keys3, dev.rows_packed, codes_dev, k
             )
 
         # the gap-candidate window never exceeds k - threshold + 1

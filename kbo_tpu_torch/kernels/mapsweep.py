@@ -188,15 +188,15 @@ def _pad_slots(arr, cap: int):
 # --------------------------------------------------------------- sweep
 
 
-def _ms3_rows_chunk(keys3, lcs3, ctx_codes, k: int, want_qtable: bool = False,
-                    ref_packed=None):
+def _ms3_rows_chunk(keys3, ref_packed, ctx_codes, k: int,
+                    want_qtable: bool = False):
     """The rows join over ``ctx_codes`` = [Q, (k-1) + W] (k-1 context codes
     + W positions per row); returns (ms, uniq, rows) for the W positions only
     (the qtable, when requested, covers ALL buffer positions -- context
     windows stay)."""
     Q, width = ctx_codes.shape
     out = ms3_rows_core(
-        keys3, lcs3, ctx_codes.reshape(-1), k, want_qtable, ref_packed
+        keys3, ref_packed, ctx_codes.reshape(-1), k, want_qtable
     )
     ms, uniq, rows = (x.reshape(Q, width)[:, k - 1 :] for x in out[:3])
     if want_qtable:
@@ -204,10 +204,10 @@ def _ms3_rows_chunk(keys3, lcs3, ctx_codes, k: int, want_qtable: bool = False,
     return ms, uniq, rows
 
 
-def ms3_rows_sweep(keys3, lcs3, codes, k: int, want_qtable: bool = False,
-                   ref_packed=None):
+def ms3_rows_sweep(keys3, ref_packed, codes, k: int, want_qtable: bool = False):
     """Stage 1 of the map sweep: the 3-bit join over a [Q, L] batch,
-    emitting device-resident per-position (ms, uniq, row).
+    emitting device-resident per-position (ms, uniq, row). ``ref_packed``
+    is the index's ``rows_packed`` (kernels.ms.rows_ref_packed).
 
     ``want_qtable`` additionally returns ``[(words, limits)]``: the
     sweep-sorted query window keys (kernels.ms.ms3_rows_core), reusable as
@@ -215,15 +215,15 @@ def ms3_rows_sweep(keys3, lcs3, codes, k: int, want_qtable: bool = False,
     Q = codes.shape[0]
     pad = torch.full((Q, k - 1), INVALID, dtype=torch.uint8, device=codes.device)
     out = _ms3_rows_chunk(
-        keys3, lcs3, torch.cat([pad, codes], dim=1), k, want_qtable, ref_packed
+        keys3, ref_packed, torch.cat([pad, codes], dim=1), k, want_qtable
     )
     if want_qtable:
         return out[0], out[1], out[2], [out[3]]
     return out
 
 
-def ms3_rows_sweep_chunked(keys3, lcs3, codes, k: int, chunk: int,
-                           want_qtable: bool = False, ref_packed=None):
+def ms3_rows_sweep_chunked(keys3, ref_packed, codes, k: int, chunk: int,
+                           want_qtable: bool = False):
     """Sequence-chunked stage 1: the same (ms, uniq, row) outputs from
     sub-joins of ``chunk`` positions each.
 
@@ -256,8 +256,9 @@ def ms3_rows_sweep_chunked(keys3, lcs3, codes, k: int, chunk: int,
             ctx = codes[:, lo - (k - 1) : lo]
         parts.append(
             _ms3_rows_chunk(
-                keys3, lcs3, torch.cat([ctx, codes[:, lo : lo + chunk]], dim=1),
-                k, want_qtable, ref_packed,
+                keys3, ref_packed,
+                torch.cat([ctx, codes[:, lo : lo + chunk]], dim=1),
+                k, want_qtable,
             )
         )
     ms, uniq, rows = (

@@ -25,6 +25,8 @@ Golden vector to verify: query vs 18-base ref gives MS
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -308,8 +310,8 @@ def rows_ref_packed(lcs3, k: int):
     return to_i32(((lcs | (lcs_up << 7)) << 8) | min(k, 254))
 
 
-def _rows_scan_pieces(keys3, lcs3, buf, k: int, want_qtable: bool = False,
-                      ref_packed=None):
+def _rows_scan_pieces(keys3, ref_packed, buf, k: int,
+                      want_qtable: bool = False):
     """Shared merge + scans of the rows join: per merged slot, the
     directional clamped LCPs, the nearest-left row index, and the
     adjacent-row LCS values at the prospective block edges.
@@ -320,13 +322,13 @@ def _rows_scan_pieces(keys3, lcs3, buf, k: int, want_qtable: bool = False,
     lcs3[row + 1] (with the row above; 0 past the table). The
     nearest-source carry scans resolve a missing side to 0 = "no row beyond
     the table edge"; left/right-best themselves imply a source row exists.
+    ``ref_packed`` is that payload, :func:`rows_ref_packed` of the index's
+    ``lcs3`` (``DeviceIndex.rows_packed``).
     """
     n = keys3.shape[1]
     T = buf.shape[0]
     assert n + T < (1 << 24) - 1, "packed path requires < 16.7M slots"
     assert k < 128, "ms rides 7 bits of the back-sort payload"
-    if ref_packed is None:
-        ref_packed = rows_ref_packed(lcs3, k)
     q_words = pack_windows_3bit(buf, k)
     meta = torch.arange(T, dtype=torch.int32, device=buf.device)
     out = _merge_scan(
@@ -347,8 +349,7 @@ def _rows_scan_pieces(keys3, lcs3, buf, k: int, want_qtable: bool = False,
     return sw, spacked, is_ref, f, b, xl, near_down, near_up, qtable
 
 
-def ms3_rows_core(keys3, lcs3, buf, k: int, want_qtable: bool = False,
-                  ref_packed=None):
+def ms3_rows_core(keys3, ref_packed, buf, k: int, want_qtable: bool = False):
     """(ms, uniq, row) for EVERY buffer position via ONE 3-bit join.
 
     The colex interval of position i's matched suffix (length ms[i]) has
@@ -361,10 +362,11 @@ def ms3_rows_core(keys3, lcs3, buf, k: int, want_qtable: bool = False,
     colex row of the unique match, valid where uniq). ``want_qtable``
     appends the sorted query-side window keys + per-window caps ((words,
     limits), see :func:`_merge_scan`). ``ref_packed`` is the index's cached
-    :func:`rows_ref_packed`.
+    :func:`rows_ref_packed` (kbo_tpu passes ``lcs3`` here and packs it per
+    call).
     """
     sw, spacked, is_ref, f, b, xl, near_down, near_up, qtable = (
-        _rows_scan_pieces(keys3, lcs3, buf, k, want_qtable, ref_packed)
+        _rows_scan_pieces(keys3, ref_packed, buf, k, want_qtable)
     )
     n = keys3.shape[1]
     T = buf.shape[0]
@@ -404,9 +406,10 @@ class DeviceIndex:
 
     The host-built ``keys2`` / ``cap2`` / ``keys3`` are uploaded as they are
     (kbo_tpu's ``KBO_TPU_UPLOAD_INDEX=1`` branch; the on-device table
-    rebuild comes with a later slice of the port). ``lcs3`` and the rows
-    join's static reference payload ``rows_packed`` derive from ``keys3``
-    once per index.
+    rebuild comes with a later slice of the port). ``keys2`` / ``cap2`` go
+    up at construction; ``keys3``, ``lcs3`` and the rows join's static
+    reference payload ``rows_packed`` are made once, at the first read (the
+    map path's), so an index that only serves find never holds them.
     """
 
     def __init__(self, index: SbwtIndex, device=None):
@@ -417,20 +420,28 @@ class DeviceIndex:
         self.n_kmers = int(index.n_kmers)
         self.k = int(index.k)
 
-        def put(table, dtype):
-            table = np.ascontiguousarray(table, dtype=dtype)
-            if dtype is np.uint32:
-                table = table.view(np.int32)
-            return torch.from_numpy(table).to(self.device)
+        self._index = index
+        self.keys2 = self._put(index.keys2, np.uint32)
+        self.cap2 = self._put(index.cap2, np.int32)
 
-        self.keys2 = put(index.keys2, np.uint32)
-        self.cap2 = put(index.cap2, np.int32)
-        self.keys3 = put(index.keys3, np.uint32)
-        self.lcs3 = lcs3_from_keys3(self.keys3, self.k)
+    def _put(self, table, dtype):
+        table = np.ascontiguousarray(table, dtype=dtype)
+        if dtype is np.uint32:
+            table = table.view(np.int32)
+        return torch.from_numpy(table).to(self.device)
+
+    @functools.cached_property
+    def keys3(self):
+        return self._put(self._index.keys3, np.uint32)
+
+    @functools.cached_property
+    def lcs3(self):
+        return lcs3_from_keys3(self.keys3, self.k)
+
+    @functools.cached_property
+    def rows_packed(self):
         # k >= 128 has no rows join (the payload carries 7-bit LCS values)
-        self.rows_packed = (
-            rows_ref_packed(self.lcs3, self.k) if self.k < 128 else None
-        )
+        return rows_ref_packed(self.lcs3, self.k) if self.k < 128 else None
 
 
 def _bucket(n: int, lo: int = 1024) -> int:

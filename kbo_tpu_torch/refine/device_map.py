@@ -66,21 +66,15 @@ def _paint_runs(out_flat, starts, ends, vals, L: int, row_lens):
     out_flat[base + offs] = np.repeat(vals.astype(np.uint8), ls)
 
 
-def _canvas(ref_seqs, Q: int, L: int, fmt: bool, ref_mat=None):
+def _canvas(ref_seqs, Q: int, L: int, fmt: bool, ref_mat):
     """Padded [Q*L] output canvas + per-row true lengths: rows start as the
-    raw reference bytes (``format=True``) or 'M' fill."""
+    raw reference bytes (``format=True``: a copy of the padded [Q, L] host
+    matrix ``ref_mat``) or 'M' fill."""
     row_lens = np.zeros(Q, dtype=np.int64)
     for q, r in enumerate(ref_seqs):
         row_lens[q] = len(r)
     if fmt:
-        if ref_mat is not None:
-            canvas = ref_mat.reshape(-1).copy()
-        else:
-            canvas = np.zeros(Q * L, dtype=np.uint8)
-            for q, r in enumerate(ref_seqs):
-                canvas[q * L : q * L + len(r)] = np.frombuffer(
-                    bytes(r), dtype=np.uint8
-                )
+        canvas = ref_mat.reshape(-1).copy()
     else:
         canvas = np.full(Q * L, ord("M"), dtype=np.uint8)
     return canvas, row_lens

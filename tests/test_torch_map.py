@@ -187,9 +187,9 @@ def test_map_chunked_sweep_equals_single_shot(monkeypatch):
     chunks = []
     real = tmap.ms3_rows_sweep_chunked
 
-    def spy(keys3, lcs3, codes, k, chunk, **kw):
+    def spy(keys3, ref_packed, codes, k, chunk, **kw):
         chunks.append(chunk)
-        return real(keys3, lcs3, codes, k, chunk, **kw)
+        return real(keys3, ref_packed, codes, k, chunk, **kw)
 
     monkeypatch.setattr(tmap, "ms3_rows_sweep_chunked", spy)
     monkeypatch.setattr(tms, "_PACKED_SLOT_LIMIT", tidx.keys3.shape[1] + 1500)
@@ -230,7 +230,11 @@ def test_map_other_paths_raise():
 def test_paint_runs_and_canvas():
     L = 8
     refs = [b"ACGTAC", b"GG"]
-    canvas, row_lens = device_map._canvas(refs, 2, L, True)
+    ref_mat = np.zeros((2, L), dtype=np.uint8)
+    for q, r in enumerate(refs):
+        ref_mat[q, : len(r)] = np.frombuffer(r, dtype=np.uint8)
+    canvas, row_lens = device_map._canvas(refs, 2, L, True, ref_mat)
+    assert not np.shares_memory(canvas, ref_mat)
     assert canvas.tobytes() == b"ACGTAC\0\0GG\0\0\0\0\0\0"
     device_map._paint_runs(
         canvas, np.asarray([1, 4, 8]), np.asarray([3, 8, 16]),
@@ -238,7 +242,7 @@ def test_paint_runs_and_canvas():
     )
     # ends clip to each row's true length
     assert canvas.tobytes() == b"A--TXX\0\0--\0\0\0\0\0\0"
-    canvas, _ = device_map._canvas(refs, 2, L, False)
+    canvas, _ = device_map._canvas(refs, 2, L, False, ref_mat)
     assert canvas.tobytes() == b"M" * 16
     device_map._paint_runs(canvas, np.zeros(0, np.int32), np.zeros(0, np.int32),
                            np.zeros(0, np.int32), L, row_lens)

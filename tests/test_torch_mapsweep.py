@@ -65,7 +65,9 @@ def _sweep_both(k, seed):
     codes, lengths = _codes(contigs)
     keys3 = _i32(idx.keys3)
     lcs3 = tms.lcs3_from_keys3(keys3, k)
-    got = tmap.ms3_rows_sweep(keys3, lcs3, torch.from_numpy(codes), k)
+    got = tmap.ms3_rows_sweep(
+        keys3, tms.rows_ref_packed(lcs3, k), torch.from_numpy(codes), k
+    )
     jk = jnp.asarray(idx.keys3)
     want = jmap.ms3_rows_sweep(
         jk, jms.lcs3_from_keys3(jk, k), jnp.asarray(codes), k
@@ -165,8 +167,8 @@ def test_ms3_rows_sweep_chunked_equal(chunk):
     keys3 = _i32(idx.keys3)
     lcs3 = tms.lcs3_from_keys3(keys3, k)
     out = tmap.ms3_rows_sweep_chunked(
-        keys3, lcs3, torch.from_numpy(codes), k, chunk, want_qtable=True,
-        ref_packed=tms.rows_ref_packed(lcs3, k),
+        keys3, tms.rows_ref_packed(lcs3, k), torch.from_numpy(codes), k, chunk,
+        want_qtable=True,
     )
     _assert_sweep_equal(out[:3], want)
     assert torch.equal(out[0], got[0]) and torch.equal(out[1], got[1])

@@ -89,8 +89,9 @@ def test_ms3_rows_core_equal(k, seed):
     keys3 = _i32(idx.keys3)
     lcs3 = tms.lcs3_from_keys3(keys3, k)
     buf, _ = tms.make_flat_buffer(encode_ascii(q), k)
+    packed = tms.rows_ref_packed(lcs3, k)
     ms, uniq, row, (qw, ql) = tms.ms3_rows_core(
-        keys3, lcs3, torch.from_numpy(buf), k, want_qtable=True
+        keys3, packed, torch.from_numpy(buf), k, want_qtable=True
     )
     jk = jnp.asarray(idx.keys3)
     jms_, juniq, jrow, (jqw, jql) = jms.ms3_rows_core(
@@ -103,11 +104,8 @@ def test_ms3_rows_core_equal(k, seed):
     np.testing.assert_array_equal(row.numpy()[u], np.asarray(jrow)[u])
     np.testing.assert_array_equal(_u32(qw), np.stack([np.asarray(w) for w in jqw]))
     np.testing.assert_array_equal(ql.numpy(), np.asarray(jql))
-    # without the table, and with the payload packed ahead of time
-    ms2, uniq2, row2 = tms.ms3_rows_core(
-        keys3, lcs3, torch.from_numpy(buf), k,
-        ref_packed=tms.rows_ref_packed(lcs3, k),
-    )
+    # without the table
+    ms2, uniq2, row2 = tms.ms3_rows_core(keys3, packed, torch.from_numpy(buf), k)
     assert torch.equal(ms, ms2) and torch.equal(uniq, uniq2)
     assert torch.equal(row, row2)
 
@@ -130,13 +128,13 @@ def test_ms3_core_equals_ms2_core(k):
 def test_rows_join_asserts():
     idx = kbo_tpu_torch.build([b"ACGTACGTAGGATTACA"], kbo_tpu_torch.BuildOpts(k=5))
     keys3 = _i32(idx.keys3)
-    lcs3 = tms.lcs3_from_keys3(keys3, 5)
+    packed = tms.rows_ref_packed(tms.lcs3_from_keys3(keys3, 5), 5)
     buf = torch.from_numpy(np.full(64, 1, np.uint8))
     with pytest.raises(AssertionError, match="k < 128|7 bits"):
-        tms._rows_scan_pieces(keys3, lcs3, buf, 128)
+        tms._rows_scan_pieces(keys3, packed, buf, 128)
     big = torch.empty((1 << 24), dtype=torch.uint8)
     with pytest.raises(AssertionError, match="16.7M slots"):
-        tms._rows_scan_pieces(keys3, lcs3, big, 5)
+        tms._rows_scan_pieces(keys3, packed, big, 5)
 
 
 def test_device_index_tables_equal(monkeypatch):
@@ -147,6 +145,8 @@ def test_device_index_tables_equal(monkeypatch):
     ref, _ = _pair(77)
     k = 31
     tdev = tms.DeviceIndex(kbo_tpu_torch.build([ref], kbo_tpu_torch.BuildOpts(k=k)), "cpu")
+    # the map path's tables are made at the first read, not for find alone
+    assert not {"keys3", "lcs3", "rows_packed"} & set(vars(tdev))
     jdev = jms.DeviceIndex(kbo_tpu.build([ref], kbo_tpu.BuildOpts(k=k)))
     np.testing.assert_array_equal(_u32(tdev.keys3), np.asarray(jdev.keys3))
     np.testing.assert_array_equal(tdev.lcs3.numpy(), np.asarray(jdev.lcs3))
