@@ -10,9 +10,13 @@ Phases, each printed as it passes; any failure exits non-zero:
 2. build: compiles the CUDA kernels from kbo_tpu_torch/kernels/csrc into
    kbo_tpu_torch/_build (or loads them from there);
    then the reference's golden MS vector and matches doctest on the card;
-3. kernels: merge_path, clamp_scan (bits 2 and 3, both directions) and
-   derandomize_translate against their plain PyTorch versions on the card,
-   bit-exact, at the find and map shapes and at edge shapes;
+3. kernels: merge_path, clamp_scan (bits 2 and 3, both directions),
+   derandomize_translate, bitonic_merge and bitonic_sort against their plain
+   PyTorch versions on the card, bit-exact, at the find and map shapes (the
+   variant join's shape captured from one default map_ call) and at edge
+   shapes; bitonic_sort also against the radix sort; the joins with
+   merge="bitonic" against merge="path" (ms2_core at find-core length,
+   ms3_rows_core at the map shape), launch counts read around each;
 4. the find slice at full size on bench.py's workload (a 4.6 Mbase genome
    from default_rng(42) with a SNP per kb and sparse 3-base deletions,
    k=51): find-core (ms2_core -> derandomize_translate over the streamed
@@ -22,13 +26,16 @@ Phases, each printed as it passes; any failure exits non-zero:
    row); outputs must equal
    the port's own device="cpu" run of the same calls (the CPU run of
    find-core takes the first quarter of the sequence);
-5. the map slice at full size on the same pair: api.map_ with
-   MapOpts(fill_gaps=False, call_variants=False), format true and false,
-   one 8-contig api.map_batch, and the chunked sweep against the
-   single-shot one, launch counts read around each entry-point call alone;
-   outputs must equal the port's own device="cpu" run byte for byte;
+5. the map slice at full size on the same pair: api.map_ with the default
+   MapOpts() (gap filling and variant calling on the card), format true and
+   false, and one 8-contig api.map_batch (the tagged variant join); then the
+   same with MapOpts(fill_gaps=False, call_variants=False), and the chunked
+   sweep against the single-shot one; launch counts read around each
+   entry-point call alone; outputs must equal the port's own device="cpu"
+   run byte for byte;
 6. times on the card (CUDA events or the host clock, medians of 7; by
-   stage), each with the card's name and power limit, then one
+   stage, the refinement's stages and the per-index extension table
+   included), each with the card's name and power limit, then one
    torch.profiler run of each workload: device busy share and the kernels
    that take the time.
 
@@ -88,11 +95,13 @@ def main() -> int:
     from kbo_tpu_torch.kernels.join import _lib as join_lib
     from kbo_tpu_torch.kernels.join import clamp_scan, clamp_scan_plain
     from kbo_tpu_torch.kernels import mapsweep
+    from kbo_tpu_torch.kernels import ms as ms_mod
     from kbo_tpu_torch.kernels.ms import (
         _bucket,
         _merge_scan,
         make_flat_buffer,
         ms2_core,
+        ms3_rows_core,
         pack_windows_2bit,
         pack_windows_3bit,
         query_ms_values_device,
@@ -104,10 +113,22 @@ def main() -> int:
         derandomize_translate_plain,
         translate_core,
     )
+    from kbo_tpu_torch.kernels.refine import (
+        build_ext_table_core,
+        get_ext_table,
+        prob_bound,
+        resolve_variants_core,
+        score_gaps_core,
+    )
     from kbo_tpu_torch.kernels.sort import (
+        _bitonic_lib,
         _lib as sort_lib,
         _pack_key_words,
         _radix_sort,
+        bitonic_merge,
+        bitonic_merge_plain,
+        bitonic_sort,
+        bitonic_sort_plain,
         merge_path,
         merge_path_plain,
         to_i32,
@@ -116,6 +137,7 @@ def main() -> int:
     from kbo_tpu_torch.ops.derandomize import random_match_threshold
     from kbo_tpu_torch.pipeline import pad_batch
     from kbo_tpu_torch.refine.device_map import _pow2_cap, map_devref_finish
+    from kbo_tpu_torch.utils.stats import get_stats, reset_stats
 
     # ---- 1. probe
     if not torch.cuda.is_available():
@@ -134,10 +156,12 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    secs = _build.build(["merge_path", "clamp_scan", "derand_translate"])
-    sort_lib(), join_lib(), post_lib()
-    print(f"build: merge_path, clamp_scan, derand_translate compiled/loaded in "
-          f"{time.perf_counter() - t0:.1f}s (nvcc {secs:.1f}s)", flush=True)
+    secs = _build.build(["merge_path", "clamp_scan", "derand_translate",
+                         "bitonic"])
+    sort_lib(), join_lib(), post_lib(), _bitonic_lib()
+    print(f"build: merge_path, clamp_scan, derand_translate, bitonic "
+          f"compiled/loaded in {time.perf_counter() - t0:.1f}s (nvcc "
+          f"{secs:.1f}s)", flush=True)
 
     # ---- reference values on a small input, through the entry points
     # (reference: src/index.rs:238-240 MS vector, src/lib.rs:594-610 matches)
@@ -153,11 +177,22 @@ def main() -> int:
     print("reference: golden MS vector and matches doctest equal on the card",
           flush=True)
 
+    def dopts(fmt):
+        """bench.py's map options: MapOpts() with the index's BuildOpts."""
+        return MapOpts(format=fmt, sbwt_build_opts=BuildOpts(
+            k=K, build_select=True))
+
+    def contigs_of(seq):
+        """Eight contigs of up to 500 kbase from along the sequence."""
+        step = len(seq) // 8
+        return [seq[i * step : i * step + min(500_000, step)]
+                for i in range(8)]
+
     # ---- workload and index (host build, as a user would)
     n = int(args.genome)
     t0 = time.perf_counter()
     ref, query = _workload(n)
-    index = api.build([query], BuildOpts(k=K))
+    index = api.build([query], BuildOpts(k=K, build_select=True))
     threshold = random_match_threshold(K, index.n_kmers, 4, 1e-7)
     print(f"index: {n} bases, k={K}, {index.n_rows} rows, threshold "
           f"{threshold}, built in {time.perf_counter() - t0:.1f}s", flush=True)
@@ -198,7 +233,8 @@ def main() -> int:
         cb = pay & 0xFF
         return torch.where(cb == 0xFF, -1, cb)
 
-    errs = {"merge_path": 0, "clamp_scan": 0, "derandomize_translate": 0}
+    errs = {"merge_path": 0, "clamp_scan": 0, "derandomize_translate": 0,
+            "bitonic_merge": 0, "bitonic_sort": 0}
 
     def check(name, what, got, want):
         for g, w in zip(got, want):
@@ -219,10 +255,31 @@ def main() -> int:
         dim=1,
     ).reshape(-1)
 
+    # the variant join's operands (the sweep's sorted query table against
+    # the reference k-mers' probe windows), captured from one default map_
+    # call; the call also builds the index's extension table
+    captured = []
+    real_merge = ms_mod.merge_path
+
+    def recording(*a):
+        captured.append(a)
+        return real_merge(*a)
+
+    ms_mod.merge_path = recording
+    try:
+        api.map_(ref, index, dopts(True), device=cuda)
+    finally:
+        ms_mod.merge_path = real_merge
+    if len(captured) != 2:
+        raise SystemExit(f"FAIL default map_ ran {len(captured)} merges, not 2")
+
     shapes = {}
     for label, b, bits in (("find-core", buf, 2), ("batch", bbuf, 2),
-                           ("map", mbuf, 3)):
-        ops = join_operands(b) if bits == 2 else join_operands3(b)
+                           ("map", mbuf, 3), ("rk-vs-seq", None, 3)):
+        if label == "rk-vs-seq":
+            ops = captured[1]
+        else:
+            ops = join_operands(b) if bits == 2 else join_operands3(b)
         shapes[label] = (ops, bits)
         mk = merge_path(*ops)
         check("merge_path", f"{label} W={ops[0].shape[0]} na={ops[0].shape[1]} "
@@ -257,7 +314,8 @@ def main() -> int:
             g.integers(0, 8, (w, m)).astype(np.int64) * 0x24924924
         ).to(cuda)
         keys, _ = _radix_sort(to_i32(x))
-        return keys, torch.arange(m, dtype=torch.int32, device=cuda)
+        return keys.contiguous(), torch.arange(m, dtype=torch.int32,
+                                               device=cuda)
 
     for na, nb in ((100, 37), (1, 5000), (5000, 1), (3, 0), (0, 7),
                    (2048 * 3 + 17, 4096 + 5)):
@@ -274,6 +332,41 @@ def main() -> int:
                 check("clamp_scan", f"edge M={m} bits={bits} reverse={rev}",
                       [clamp_scan(kw, cp, bits, rev)],
                       [clamp_scan_plain(kw, cp, bits, rev)])
+
+    # bitonic_merge at the find-core and variant-join shapes, payloads and
+    # pads included; bitonic_sort at the find-core query-side sort shape,
+    # also against the (stable) radix sort: keys equal, payloads equal as
+    # multisets within each equal-key group
+    def ops_of(keys, pay):
+        return torch.cat([keys, pay[None]])
+
+    bitonic_in = {}
+    for label in ("find-core", "map", "rk-vs-seq"):
+        (ak, ap, bk, bp), _ = shapes[label]
+        bitonic_in[label] = (ops_of(ak, ap), ops_of(bk, bp), ak.shape[0])
+        got = bitonic_merge(*bitonic_in[label])
+        check("bitonic_merge", f"{label} W={ak.shape[0]} M={got.shape[1]}",
+              [got], [bitonic_merge_plain(*bitonic_in[label])])
+        del got
+    q_words, _ = pack_windows_2bit(buf, K)
+    meta = torch.arange(buf.shape[0], dtype=torch.int32, device=cuda)
+    sort_in = ops_of(q_words, to_i32((meta.to(torch.int64) << 8) | 0xFF))
+    del q_words, meta
+    got = bitonic_sort(sort_in, 4)
+    check("bitonic_sort", f"find-core query side n={sort_in.shape[1]} W=4",
+          [got], [bitonic_sort_plain(sort_in, 4)])
+    keys, (pay,) = _radix_sort(sort_in[:4], [sort_in[4]])
+    if not (torch.equal(got[:4], keys) and torch.equal(
+            _radix_sort(got)[0], _radix_sort(ops_of(keys, pay))[0])):
+        raise SystemExit("FAIL bitonic_sort differs from the radix sort")
+    print("kernel bitonic_sort: keys equal the radix sort's, payloads as "
+          "multisets per key group", flush=True)
+    del got, keys, pay
+    for na, nb in ((0, 7), (1, 5000), (2048 * 3 + 17, 4096 + 5)):
+        a, b = rand_sorted(na, 8), rand_sorted(nb, 8)
+        check("bitonic_merge", f"edge na={na} nb={nb} W=8",
+              [bitonic_merge(ops_of(*a), ops_of(*b), 8)],
+              [bitonic_merge_plain(ops_of(*a), ops_of(*b), 8)])
 
     # derandomize_translate: equal to the plain version below each row's
     # true length, 0 at and past it
@@ -320,22 +413,24 @@ def main() -> int:
              .to(cuda), 300)
 
     counters = {"merge_path": merge_path, "clamp_scan": clamp_scan,
-                "derandomize_translate": derandomize_translate}
+                "derandomize_translate": derandomize_translate,
+                "bitonic_merge": bitonic_merge, "bitonic_sort": bitonic_sort}
 
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
 
-    # launches of each entry-point call, read around that call alone
+    # launches of each call, read around that call alone
     launches = {}
+    ONE_JOIN = {"merge_path": 1, "clamp_scan": 2, "derandomize_translate": 1,
+                "bitonic_merge": 0, "bitonic_sort": 0}
 
-    def read_counts(path):
+    def read_counts(path, want=ONE_JOIN):
         torch.cuda.synchronize()
         got = {name: fn.launches for name, fn in counters.items()}
-        for name, cnt in got.items():
-            if cnt == 0:
-                raise SystemExit(f"FAIL {name} was not launched on the "
-                                 f"{path} path")
+        if got != want:
+            raise SystemExit(f"FAIL launches on the {path} path: {got}, "
+                             f"expected {want}")
         return got
 
     # ---- 4. the find slice at full size; launch counts around this phase
@@ -403,12 +498,99 @@ def main() -> int:
           flush=True)
     del ms4_gpu, chars4_gpu, ms_cpu, chars_cpu
 
-    # ---- 5. the map slice at full size; launch counts around this phase
+    # the joins with merge="bitonic" (kbo_tpu's KBO_TPU_MERGE_PATH=0 choice)
+    # give what merge="path" gives: find-core's MS at full length, the rows
+    # join's MS / uniq / rows at the map shape; the padded layout runs
+    # through the scans and the back-to-order steps drop the pads
+    only_bitonic = {**ONE_JOIN, "merge_path": 0, "derandomize_translate": 0,
+                    "bitonic_merge": 1}
+    reset_counts()
+    ms_bit = ms2_core(dev.keys2, dev.cap2, buf, K, merge="bitonic")
+    launches["ms2_core merge=bitonic"] = read_counts(
+        "ms2_core merge=bitonic", only_bitonic)
+    if not torch.equal(ms_bit, ms_gpu):
+        raise SystemExit("FAIL ms2_core merge=bitonic differs from merge=path")
+    reset_counts()
+    rows_bit = ms3_rows_core(dev.keys3, dev.rows_packed, mbuf, K,
+                             merge="bitonic")
+    launches["ms3_rows_core merge=bitonic"] = read_counts(
+        "ms3_rows_core merge=bitonic", only_bitonic)
+    rows_path = ms3_rows_core(dev.keys3, dev.rows_packed, mbuf, K)
+    if not all(torch.equal(x, y) for x, y in zip(rows_bit, rows_path)):
+        raise SystemExit("FAIL ms3_rows_core merge=bitonic differs from "
+                         "merge=path")
+    reset_counts()
+    bitonic_sort(sort_in, 4)
+    launches["bitonic_sort"] = read_counts(
+        "bitonic_sort", {**only_bitonic, "clamp_scan": 0, "bitonic_merge": 0,
+                         "bitonic_sort": 1})
+    print(f"merge=bitonic: ms2_core over {T} slots and ms3_rows_core over "
+          f"{mbuf.shape[0]} slots equal merge=path", flush=True)
+    del ms_bit, rows_bit, rows_path
+
+    # ---- 5. the map slice at full size; launch counts around each call
     def mopts(fmt):
         return MapOpts(fill_gaps=False, call_variants=False, format=fmt)
 
-    step = n // 8
-    contigs = [ref[i * step : i * step + min(500_000, step)] for i in range(8)]
+    # the default MapOpts(): the sweep's join, the variant join reusing the
+    # sweep's sorted query table (single shot: one table), one fused
+    # derandomize+translate; the 8-contig batch joins against its own
+    # tagged table (W=7)
+    TWO_JOINS = {**ONE_JOIN, "merge_path": 2, "clamp_scan": 4}
+    t0 = time.perf_counter()
+    dmap_gpu, dstats = {}, {}
+    for fmt in (True, False):
+        reset_counts()
+        reset_stats()
+        dmap_gpu[fmt] = api.map_(ref, index, dopts(fmt), device=cuda)
+        launches[f"map_ MapOpts() format={fmt}"] = read_counts(
+            f"map_ MapOpts() format={fmt}", TWO_JOINS)
+        dstats[fmt] = get_stats().as_dict()
+    reset_counts()
+    reset_stats()
+    dbatch_gpu = api.map_batch(contigs_of(ref), index, dopts(True), device=cuda)
+    launches["map_batch MapOpts()"] = read_counts("map_batch MapOpts()",
+                                                  TWO_JOINS)
+    dstats["batch"] = get_stats().as_dict()
+    print(f"default map path on the card: {time.perf_counter() - t0:.2f}s, "
+          f"launches per call {json.dumps(launches)}", flush=True)
+    t0 = time.perf_counter()
+    for fmt in (True, False):
+        reset_stats()
+        if dmap_gpu[fmt] != api.map_(ref, index, dopts(fmt), device="cpu"):
+            raise SystemExit(f"FAIL map_ MapOpts() format={fmt} differs from "
+                             "the CPU run")
+        if get_stats().as_dict().get("variants_called") != \
+                dstats[fmt]["variants_called"]:
+            raise SystemExit("FAIL map_ MapOpts() counters differ from the "
+                             "CPU run")
+    if dbatch_gpu != api.map_batch(contigs_of(ref), index, dopts(True),
+                                   device="cpu"):
+        raise SystemExit("FAIL map_batch MapOpts() differs from the CPU run")
+    dt, df = dmap_gpu[True], dmap_gpu[False]
+    if len(dt) != n or len(df) != n or set(dt) - set(b"ACGTN-") \
+            or set(df) - set(b"MX-RACGTNID"):
+        raise SystemExit("FAIL map_ MapOpts() output has the wrong length or "
+                         "alphabet")
+    st = dstats[True]
+    print(f"CPU run of the default map calls: {time.perf_counter() - t0:.1f}s; "
+          f"map_ MapOpts(): {n} bases, format true and false and the 8-contig "
+          f"map_batch equal the CPU run; counters: variants resolved "
+          f"{st['variants_called']}, gaps seen {st['gaps_seen']}, filled "
+          f"{st['gaps_filled']}, unfilled bases {st['gap_bases_unfilled']}, "
+          f"host-fallback gaps {st['gaps_to_host']}; "
+          f"{n - int((np.frombuffer(dt, np.uint8) == np.frombuffer(ref, np.uint8)).sum())}"
+          f" bases differ from the reference", flush=True)
+    sb = dstats["batch"]
+    print(f"map_batch MapOpts() counters: variants resolved "
+          f"{sb['variants_called']}, gaps seen {sb['gaps_seen']}, filled "
+          f"{sb['gaps_filled']}, host-fallback gaps {sb['gaps_to_host']}",
+          flush=True)
+    if st["variants_called"] == 0 or st["gaps_filled"] == 0:
+        raise SystemExit("FAIL the default map_ resolved no variant or "
+                         "filled no gap")
+
+    contigs = contigs_of(ref)
     t0 = time.perf_counter()
     map_gpu = {}
     for fmt in (True, False):
@@ -511,14 +693,18 @@ def main() -> int:
           f"({QN / t_batch * 1e3:.1f} queries/s, "
           f"{QN * QL / t_batch * 1e3 / 1e6:.2f} Mbases/s)", flush=True)
 
-    for fmt in (True, False):
-        t_map = host_ms(lambda: api.map_(ref, index, mopts(fmt), device=cuda))
-        print(f"{tag} map_ format={fmt}: {t_map:.3f} ms "
-              f"({n / t_map * 1e3 / 1e6:.2f} Mbases/s) over {n} bases, host "
-              f"clock around the call", flush=True)
-    t_mb = host_ms(lambda: api.map_batch(contigs, index, mopts(True), device=cuda))
-    print(f"{tag} map_batch[8x{len(contigs[0])}]: {t_mb:.3f} ms "
-          f"({8 * len(contigs[0]) / t_mb * 1e3 / 1e6:.2f} Mbases/s)", flush=True)
+    for label, opts_of in (("MapOpts()", dopts), ("refinements off", mopts)):
+        for fmt in (True, False):
+            t_map = host_ms(
+                lambda: api.map_(ref, index, opts_of(fmt), device=cuda))
+            print(f"{tag} map_ {label} format={fmt}: {t_map:.3f} ms "
+                  f"({n / t_map * 1e3 / 1e6:.2f} Mbases/s) over {n} bases, "
+                  f"host clock around the call", flush=True)
+        t_mb = host_ms(
+            lambda: api.map_batch(contigs, index, opts_of(True), device=cuda))
+        print(f"{tag} map_batch[8x{len(contigs[0])}] {label}: {t_mb:.3f} ms "
+              f"({8 * len(contigs[0]) / t_mb * 1e3 / 1e6:.2f} Mbases/s)",
+              flush=True)
 
     # map_ by stage, as api.map_batch runs them for this one contig
     ref_mat = np.zeros((1, Lm), dtype=np.uint8)
@@ -554,34 +740,83 @@ def main() -> int:
     if counts[0, 0] == 0 or counts[0, 1] == 0 or counts.max() > cap_d:
         raise SystemExit("FAIL map candidate counts out of range")
 
-    def finish():
+    def finish(opts=mopts(True), tables=None):
         return map_devref_finish(
-            chars_dev, map_tl, pieces, [ref], mopts(True), cap_d, cap_g,
+            dev, codes_dev, map_tl, single[0], chars_dev, pieces, _packed,
+            [ref], index, opts, threshold, cap_d, cap_g,
             total_gap_slack=cap_g * 2 + 64, ref_mat=ref_mat,
-            ref_mat_dev=ref_mat_dev,
+            ref_mat_dev=ref_mat_dev, seq_tables=tables,
         )
 
     if finish()[0] != out_t:
         raise SystemExit("FAIL staged map run differs from api.map_")
+    # the default map_'s refinement stages on the same candidate tables:
+    # the sweep with its sorted query table, gap scoring (with the
+    # per-index extension table, built once per index), variant resolution
+    # (its join against the sweep's table), then the whole finish
+    qtab = mapsweep.ms3_rows_sweep(dev.keys3, dev.rows_packed, codes_dev, K,
+                                   want_qtable=True)[3]
+    cap_ext = _pow2_cap(max(4 * cap_g, 32), lo=256)
+
+    def gaps():
+        return score_gaps_core(
+            dev.keys3, ref_mat_dev, map_tl, pieces["gap_start"],
+            pieces["gap_end_at"], pieces["grid"], threshold, K, cap_g,
+            cap_ext, get_ext_table(dev), prob_bound(1e-7))
+
+    def variants():
+        return resolve_variants_core(
+            dev.keys3, None, codes_dev, ref_mat_dev, single[0], map_tl,
+            pieces["drop_pos"], pieces["apos"], pieces["arow"], threshold, K,
+            cap_d, d_lo=threshold - 1, seq_tables=qtab)
+
+    if finish(dopts(True), qtab)[0] != dmap_gpu[True]:
+        raise SystemExit("FAIL staged default map run differs from api.map_")
+    # the variant join with merge="bitonic" gives the same patches
+    want_v = variants()
+    reset_counts()
+    got_v = resolve_variants_core(
+        dev.keys3, None, codes_dev, ref_mat_dev, single[0], map_tl,
+        pieces["drop_pos"], pieces["apos"], pieces["arow"], threshold, K,
+        cap_d, d_lo=threshold - 1, seq_tables=qtab, merge="bitonic")
+    launches["resolve_variants_core merge=bitonic"] = read_counts(
+        "resolve_variants_core merge=bitonic", only_bitonic)
+    if not all(torch.equal(x, y) for x, y in zip(got_v, want_v)):
+        raise SystemExit("FAIL resolve_variants_core merge=bitonic differs "
+                         "from merge=path")
+    print(f"merge=bitonic: resolve_variants_core over {cap_d} drop slots "
+          f"equals merge=path ({int(want_v[2])} variants)", flush=True)
+    del got_v, want_v
     # device stages by CUDA events; the two stages that begin or end on the
     # host (numpy pack before the upload, paint after the fetch) by the
     # host clock around a synchronise
     for name, fn, clock in (
         ("upload+decode (host pack included, host clock)", upload, host_ms),
         ("ms3_rows_sweep", sweep, dev_ms),
+        ("ms3_rows_sweep want_qtable (MapOpts())", lambda: mapsweep.ms3_rows_sweep(
+            dev.keys3, dev.rows_packed, codes_dev, K, want_qtable=True), dev_ms),
         ("map_postprocess3_core", post, dev_ms),
+        ("score_gaps_core (MapOpts())", gaps, dev_ms),
+        ("resolve_variants_core with its join (MapOpts())", variants, dev_ms),
         ("assemble + fetch + paint (host clock)", finish, host_ms),
+        ("refine + assemble + fetch + paint (MapOpts(), host clock)",
+         lambda: finish(dopts(True), qtab), host_ms),
+        ("build_ext_table_core (once per index, not per call)",
+         lambda: build_ext_table_core(dev.keys3, K), dev_ms),
     ):
         print(f"{tag} map_ stage {name}: {clock(fn):.3f} ms", flush=True)
     del _packed
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base_mem = torch.cuda.memory_allocated()
-    api.map_(ref, index, mopts(True), device=cuda)
-    torch.cuda.synchronize()
-    print(f"{tag} map_ peak device memory: "
-          f"{(torch.cuda.max_memory_allocated() - base_mem) / 2**20:.1f} MiB "
-          f"above the {base_mem / 2**20:.1f} MiB the script holds", flush=True)
+    for label, opts in (("MapOpts()", dopts(True)),
+                        ("refinements off", mopts(True))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        api.map_(ref, index, opts, device=cuda)
+        torch.cuda.synchronize()
+        print(f"{tag} map_ {label} peak device memory: "
+              f"{(torch.cuda.max_memory_allocated() - base_mem) / 2**20:.1f} "
+              f"MiB above the {base_mem / 2**20:.1f} MiB the script holds",
+              flush=True)
 
     # each kernel alone at the find-core and map shapes, beside its plain
     # version, its byte bound and (where there is one) a library call
@@ -617,6 +852,34 @@ def main() -> int:
         )
         del sw, sp, cp
         rows[label] = r
+    # bitonic_merge: the same merge work as merge_path (bound and library
+    # call as its row); bitonic_sort: one read and one write of the
+    # operands, beside the radix sort's torch.sort passes on the same keys
+    def lib_sort_of(words):
+        keys = [k.contiguous() for k in _pack_key_words(words)]
+
+        def run():
+            for key in reversed(keys):
+                torch.sort(key, stable=True)
+        return run
+
+    for label, (a_ops, b_ops, W) in bitonic_in.items():
+        M = a_ops.shape[1] + b_ops.shape[1]
+        rows[label]["bitonic_merge"] = (
+            dev_ms(lambda: bitonic_merge(a_ops, b_ops, W)),
+            dev_ms(lambda: bitonic_merge_plain(a_ops, b_ops, W)),
+            2 * M * (W + 1) * 4 / hbm * 1e3,
+            dev_ms(lib_sort_of(torch.cat([a_ops[:W], b_ops[:W]], 1))),
+            f"M={M} (padded to {bitonic_merge(a_ops, b_ops, W).shape[1]}), "
+            f"W={W}",
+        )
+    rows["query sort"] = {"bitonic_sort": (
+        dev_ms(lambda: bitonic_sort(sort_in, 4)),
+        dev_ms(lambda: bitonic_sort_plain(sort_in, 4)),
+        2 * sort_in.numel() * 4 / hbm * 1e3,
+        dev_ms(lib_sort_of(sort_in[:4])),
+        f"n={sort_in.shape[1]}, W=4 + 1 payload",
+    )}
     # derandomize_translate: ms read once, one byte written per position,
     # the true lengths read once
     for label, ms_in, tl_in in (("find-core", ms_gpu, T),
@@ -634,6 +897,8 @@ def main() -> int:
     for label, r in rows.items():
         for name, (t_k, t_p, t_b, t_l, shape) in r.items():
             lib = f", torch.sort passes {t_l:.3f} ms" if t_l is not None else ""
+            if name == "bitonic_sort":
+                lib = f", radix sort's torch.sort passes {t_l:.3f} ms"
             print(f"{tag} {name} {label} ({shape}): kernel {t_k:.3f} ms, "
                   f"plain {t_p:.3f} ms, bound {t_b:.3f} ms (bytes){lib}",
                   flush=True)
@@ -663,32 +928,54 @@ def main() -> int:
 
     breakdown("find-core", lambda: find_core(buf, dev.keys2, dev.cap2))
     breakdown(f"find_batch[{QN}x{QL}]", lambda: serve(cuda))
-    breakdown("map_ format=True",
+    breakdown("map_ refinements off format=True",
               lambda: api.map_(ref, index, mopts(True), device=cuda))
+    breakdown("map_ MapOpts() format=True",
+              lambda: api.map_(ref, index, dopts(True), device=cuda))
 
     src = "kbo_tpu_torch/kernels/csrc/"
+    main = "map_ MapOpts() format=True"
+    # name: (source, TPU kernel, (shape, path whose launches it reports),
+    #        other (shape, path) pairs)
     sources = {
-        "merge_path": ("merge_path.cu", "kbo_tpu/kernels/pallas_sort.py:353"),
-        "clamp_scan": ("clamp_scan.cu", "kbo_tpu/kernels/pallas_join.py:191"),
-        "derandomize_translate": ("derand_translate.cu",
-                                  "attic/pallas_postprocess.py:258"),
+        "merge_path": ("merge_path.cu", "kbo_tpu/kernels/pallas_sort.py:353",
+                       ("map", main),
+                       [("rk-vs-seq", main), ("find-core", "find-core"),
+                        ("batch", "find_batch")]),
+        "clamp_scan": ("clamp_scan.cu", "kbo_tpu/kernels/pallas_join.py:191",
+                       ("map", main),
+                       [("rk-vs-seq", main), ("find-core", "find-core"),
+                        ("batch", "find_batch")]),
+        "derandomize_translate": (
+            "derand_translate.cu", "attic/pallas_postprocess.py:258",
+            ("map", main), [("find-core", "find-core"),
+                            ("batch", "find_batch")]),
+        "bitonic_merge": ("bitonic.cu", "kbo_tpu/kernels/pallas_sort.py:178",
+                          ("find-core", "ms2_core merge=bitonic"),
+                          [("map", "ms3_rows_core merge=bitonic"),
+                           ("rk-vs-seq",
+                            "resolve_variants_core merge=bitonic")]),
+        "bitonic_sort": ("bitonic.cu", "kbo_tpu/kernels/pallas_sort.py:558",
+                         ("query sort", "bitonic_sort"), []),
     }
     out = []
-    for name, (fname, replaces) in sources.items():
-        def entry(label, count):
+    for name, (fname, replaces, top, others) in sources.items():
+        def entry(label, path):
             t_k, t_p, t_b, t_l, shape = rows[label][name]
-            return {"launches": count, "ms": t_k, "plain_ms": t_p,
-                    "bound_ms": t_b, "bound_by": "bytes", "library_ms": t_l,
-                    "shape": f"{label}: {shape}"}
+            return {"launches": launches[path][name], "ms": t_k,
+                    "plain_ms": t_p, "bound_ms": t_b, "bound_by": "bytes",
+                    "library_ms": t_l, "shape": f"{label}: {shape}",
+                    "path": path}
 
-        # the numbers of the newest path (one map_ call); the find paths'
-        # beside them, each with the launches of its own one call
+        # the numbers at the shape of the path that runs the kernel (the
+        # default map_ for the main path's kernels, the merge="bitonic"
+        # joins and the standalone sort for the bitonic ones); the other
+        # shapes beside them, each with the launches of its own one call
         out.append({
             "name": name, "route": "cuda", "source": src + fname,
             "replaces": replaces, "max_abs_err": errs[name],
-            **entry("map", launches["map_ format=True"][name]),
-            "other_paths": [entry("find-core", launches["find-core"][name]),
-                            entry("batch", launches["find_batch"][name])],
+            **entry(*top),
+            "other_paths": [entry(*o) for o in others],
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,10 @@ its plain PyTorch version.
 
 Served so far, on one device: :func:`build` -> :func:`find` /
 :func:`find_batch` / :func:`matches`, and :func:`map_` / :func:`map_batch`
-for ``MapOpts(fill_gaps=False, call_variants=False)`` (the 3-bit rows sweep,
-a hand-written CUDA derandomize+translate kernel, candidate tables and
-delta-run assembly). ``device=None`` means the CUDA card.
+with the default ``MapOpts()`` (the 3-bit rows sweep, a hand-written CUDA
+derandomize+translate kernel, candidate tables, device gap scoring and
+variant resolution, delta-run assembly). ``device=None`` means the CUDA
+card.
 """
 
 from kbo_tpu_torch.opts import BuildOpts, FindOpts, MapOpts, MatchOpts

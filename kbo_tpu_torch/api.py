@@ -18,6 +18,7 @@ from kbo_tpu_torch.index.sbwt import SbwtIndex
 from kbo_tpu_torch.ops import derandomize, format as fmt, translate
 from kbo_tpu_torch.kernels import mapsweep, ms as ms_kernels
 from kbo_tpu_torch.kernels.ms import _bucket
+from kbo_tpu_torch.kernels.refine import max_tag
 from kbo_tpu_torch.opts import BuildOpts, FindOpts, MapOpts, MatchOpts
 from kbo_tpu_torch.refine.device_map import (
     DevRefOverflow,
@@ -96,12 +97,6 @@ def find_batch(query_seqs: list[bytes], sbwt, find_opts: FindOpts | None = None,
     ]
 
 
-def max_tag(k: int) -> int:
-    """Largest contig count the tagged rk-vs-seq join of the device
-    refinement supports (a full tag word in chunk bits 29..0)."""
-    return 1 << 30
-
-
 def map_(ref_seq: bytes, query_sbwt: SbwtIndex,
          map_opts: MapOpts | None = None, device=None) -> bytes:
     """Map a query (as an index) onto reference coordinates
@@ -122,9 +117,10 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
     fetched as run-length deltas against the reference and painted on the
     host (kernels/mapsweep.py, refine/device_map.py).
 
-    This slice serves ``MapOpts(fill_gaps=False, call_variants=False)``
-    with ``format`` true or false; the refinements raise
-    ``NotImplementedError``.
+    Gap filling and variant calling run on the device too
+    (kernels/refine.py): the default ``MapOpts()`` pays one fetch, plus a
+    host pass only for gaps whose left extensions exceed the device budgets
+    (refine/gap_filling.py). ``format`` true or false.
     """
     opts = map_opts or MapOpts()
     if mesh is not None:
@@ -132,16 +128,16 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
             "map_batch over a mesh: the multi-GPU layer is ROADMAP Queue 1 "
             "item 8"
         )
-    if opts.fill_gaps or opts.call_variants:
-        raise NotImplementedError(
-            "map_ with fill_gaps or call_variants: the device refinement "
-            "(kernels/refine.py) is ROADMAP Queue 1 item 4b; pass "
-            "MapOpts(fill_gaps=False, call_variants=False)"
-        )
     if not ref_seqs:
         return []
     ref_seqs = [bytes(r) for r in ref_seqs]
     k = query_sbwt.k
+    if opts.call_variants and k != opts.sbwt_build_opts.k:
+        # the reference builds its inner sequence index with these options
+        raise ValueError(
+            f"call_variants needs map_opts.sbwt_build_opts.k == the index's "
+            f"k ({opts.sbwt_build_opts.k} != {k})"
+        )
     threshold = derandomize.random_match_threshold(
         k, query_sbwt.n_kmers, 4, opts.max_error_prob
     )
@@ -212,30 +208,42 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
             ref_mat_dev = torch.from_numpy(ref_mat).to(dev.device)
             codes_dev = mapsweep.encode_ascii_device(ref_mat_dev)
 
+        # single-contig maps reuse the sweep's sorted query window keys as
+        # the variant join's table (kernels/refine.py resolve_variants_core
+        # ``seq_tables``); revcomp inner indexes and Q > 1 sort their own
+        want_qt = (
+            opts.call_variants and Q == 1
+            and not opts.sbwt_build_opts.add_revcomp
+        )
         # the join stage is cap-independent: the capacity-overflow retry
         # below re-runs only the postprocess stage
         if use_chunked:
-            ms_dev, uniq_dev, rows_dev = mapsweep.ms3_rows_sweep_chunked(
-                dev.keys3, dev.rows_packed, codes_dev, k, chunk
+            out = mapsweep.ms3_rows_sweep_chunked(
+                dev.keys3, dev.rows_packed, codes_dev, k, chunk,
+                want_qtable=want_qt,
             )
         else:
-            ms_dev, uniq_dev, rows_dev = mapsweep.ms3_rows_sweep(
-                dev.keys3, dev.rows_packed, codes_dev, k
+            out = mapsweep.ms3_rows_sweep(
+                dev.keys3, dev.rows_packed, codes_dev, k, want_qtable=want_qt
             )
+        ms_dev, uniq_dev, rows_dev = out[:3]
+        seq_tables = out[3] if want_qt else None
 
         # the gap-candidate window never exceeds k - threshold + 1
         # positions (mapsweep.map_postprocess3_core docstring)
         w_grid = max(k - threshold + 1, 1)
         while True:
-            chars_dev, _packed, pieces = mapsweep.map_postprocess3_core(
+            chars_dev, packed_dev, pieces = mapsweep.map_postprocess3_core(
                 ms_dev, uniq_dev, rows_dev, lengths_dev, k, threshold,
                 cap_d, cap_g, w_grid,
             )
             try:
                 return map_devref_finish(
-                    chars_dev, lengths_dev, pieces, ref_seqs, opts,
+                    dev, codes_dev, lengths_dev, ms_dev, chars_dev, pieces,
+                    packed_dev, ref_seqs, query_sbwt, opts, threshold,
                     cap_d, cap_g, total_gap_slack=cap_g * 2 + 64,
                     ref_mat=ref_mat, ref_mat_dev=ref_mat_dev,
+                    seq_tables=seq_tables,
                 )
             except DevRefOverflow as o:
                 # grow only the overflowed capacity

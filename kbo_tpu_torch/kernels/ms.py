@@ -32,7 +32,13 @@ import torch
 
 from kbo_tpu_torch.index.sbwt import SbwtIndex
 from kbo_tpu_torch.kernels.join import _common_chunks, clamp_scan
-from kbo_tpu_torch.kernels.sort import _radix_sort, merge_path, to_i32, u32
+from kbo_tpu_torch.kernels.sort import (
+    _radix_sort,
+    bitonic_merge,
+    merge_path,
+    to_i32,
+    u32,
+)
 
 INVALID = 255
 _BIG = 2**31 - 1
@@ -191,7 +197,8 @@ def _clamp_both(sw, cap, bits: int):
     return torch.clamp(torch.maximum(f, b), min=0)
 
 
-def _neighbor_best(ref_words, ref_cap, q_words, q_meta, bits: int):
+def _neighbor_best(ref_words, ref_cap, q_words, q_meta, bits: int,
+                   merge: str = "path"):
     """Best min(lcp, cap) of each query key against the reference keys.
 
     ref_words: int32 [W, n] sorted key words; ref_cap: int32 [n] per-row caps
@@ -225,7 +232,9 @@ def _neighbor_best(ref_words, ref_cap, q_words, q_meta, bits: int):
         )
         c = _clamp_both(sw, cap_s, bits)
         return c[torch.argsort(meta_s)][:L]
-    sw, spacked, f, b = _merge_scan(ref_words, ref_cap, q_words, q_meta, bits)
+    sw, spacked, f, b = _merge_scan(
+        ref_words, ref_cap, q_words, q_meta, bits, merge=merge
+    )
     c = torch.clamp(torch.maximum(f, b), min=0)
     out_packed = (u32(spacked) & 0xFFFFFF00) | torch.clamp(c, max=255)
     back = torch.sort(out_packed).values[:L]
@@ -233,7 +242,7 @@ def _neighbor_best(ref_words, ref_cap, q_words, q_meta, bits: int):
 
 
 def _merge_scan(ref_words, ref_cap, q_words, q_meta, bits: int,
-                q_aux=None, ref_packed=None):
+                q_aux=None, ref_packed=None, merge: str = "path"):
     """Packed merge + directional clamped-LCP scans.
 
     Packs reference and query slots into the single payload (see
@@ -250,13 +259,30 @@ def _merge_scan(ref_words, ref_cap, q_words, q_meta, bits: int,
     ``q_aux`` (int32 [L]) rides the query sort, and the return grows
     to (sw, spacked, f, b, (q_sorted_words, q_aux_sorted)): the query-side
     sorted table, free here because the merge needs the query side sorted.
+
+    ``merge="bitonic"`` merges with :func:`bitonic_merge` instead (kbo_tpu's
+    ``KBO_TPU_MERGE_PATH=0`` choice, ``slice_output=False``): the merged
+    arrays stay padded to a power of two, and the pads (all-ones keys,
+    payload 0xFFFFFFFF) run through the scans as non-source query slots with
+    slot id 0xFFFFFF, which every back-to-order step drops.
     """
     if ref_packed is None:
         ref_packed = to_i32(0xFFFFFF00 | u32(ref_cap))
     q_packed = to_i32((q_meta.to(torch.int64) << 8) | 0xFF)
     pays = [q_packed] if q_aux is None else [q_packed, q_aux]
     qs, qpays = _radix_sort(q_words, pays)
-    sw, spacked = merge_path(ref_words.contiguous(), ref_packed, qs, qpays[0])
+    if merge == "path":
+        sw, spacked = merge_path(ref_words.contiguous(), ref_packed, qs, qpays[0])
+    elif merge == "bitonic":
+        W = ref_words.shape[0]
+        merged = bitonic_merge(
+            torch.cat([ref_words, ref_packed[None]]),
+            torch.cat([qs, qpays[0][None]]),
+            W,
+        )
+        sw, spacked = merged[:W], merged[W]
+    else:
+        raise ValueError(f"merge must be 'path' or 'bitonic', not {merge!r}")
     capbyte = spacked & 0xFF
     cap = torch.where(capbyte == 0xFF, -1, capbyte)
     f = clamp_scan(sw, cap, bits, reverse=False)
@@ -266,7 +292,7 @@ def _merge_scan(ref_words, ref_cap, q_words, q_meta, bits: int,
     return sw, spacked, f, b
 
 
-def ms2_core(keys2, cap2, buf, k: int):
+def ms2_core(keys2, cap2, buf, k: int, merge: str = "path"):
     """Value-only MS for every position of a flat code buffer (2-bit join).
 
     keys2: int32 [W2, n_rows] 2-bit keys of ALL rows (real + dummy), sorted
@@ -276,7 +302,7 @@ def ms2_core(keys2, cap2, buf, k: int):
     """
     q_words, limit = pack_windows_2bit(buf, k)
     meta = torch.arange(buf.shape[0], dtype=torch.int32, device=buf.device)
-    c = _neighbor_best(keys2, cap2, q_words, meta, bits=2)
+    c = _neighbor_best(keys2, cap2, q_words, meta, bits=2, merge=merge)
     return torch.minimum(c, limit)
 
 
@@ -311,7 +337,7 @@ def rows_ref_packed(lcs3, k: int):
 
 
 def _rows_scan_pieces(keys3, ref_packed, buf, k: int,
-                      want_qtable: bool = False):
+                      want_qtable: bool = False, merge: str = "path"):
     """Shared merge + scans of the rows join: per merged slot, the
     directional clamped LCPs, the nearest-left row index, and the
     adjacent-row LCS values at the prospective block edges.
@@ -333,7 +359,7 @@ def _rows_scan_pieces(keys3, ref_packed, buf, k: int,
     meta = torch.arange(T, dtype=torch.int32, device=buf.device)
     out = _merge_scan(
         keys3, None, q_words, meta, 3, ref_packed=ref_packed,
-        q_aux=window_limits(buf, k) if want_qtable else None,
+        q_aux=window_limits(buf, k) if want_qtable else None, merge=merge,
     )
     sw, spacked, f, b = out[:4]
     qtable = out[4] if want_qtable else None
@@ -349,7 +375,8 @@ def _rows_scan_pieces(keys3, ref_packed, buf, k: int,
     return sw, spacked, is_ref, f, b, xl, near_down, near_up, qtable
 
 
-def ms3_rows_core(keys3, ref_packed, buf, k: int, want_qtable: bool = False):
+def ms3_rows_core(keys3, ref_packed, buf, k: int, want_qtable: bool = False,
+                  merge: str = "path"):
     """(ms, uniq, row) for EVERY buffer position via ONE 3-bit join.
 
     The colex interval of position i's matched suffix (length ms[i]) has
@@ -363,10 +390,10 @@ def ms3_rows_core(keys3, ref_packed, buf, k: int, want_qtable: bool = False):
     appends the sorted query-side window keys + per-window caps ((words,
     limits), see :func:`_merge_scan`). ``ref_packed`` is the index's cached
     :func:`rows_ref_packed` (kbo_tpu passes ``lcs3`` here and packs it per
-    call).
+    call). ``merge`` picks the merge of :func:`_merge_scan`.
     """
     sw, spacked, is_ref, f, b, xl, near_down, near_up, qtable = (
-        _rows_scan_pieces(keys3, ref_packed, buf, k, want_qtable)
+        _rows_scan_pieces(keys3, ref_packed, buf, k, want_qtable, merge)
     )
     n = keys3.shape[1]
     T = buf.shape[0]
@@ -384,8 +411,10 @@ def ms3_rows_core(keys3, ref_packed, buf, k: int, want_qtable: bool = False):
     # back to query order: every buffer position owns exactly one query
     # slot, so a scatter by slot id (reference slots go to a spare entry)
     # stands for kbo_tpu's single-key back-sort; the payload packs
-    # (row 24b | ms 7b | uniq 1b)
-    dest = torch.where(is_ref, T, (spacked >> 8) & 0xFFFFFF).to(torch.int64)
+    # (row 24b | ms 7b | uniq 1b). The bitonic merge's pads carry slot id
+    # 0xFFFFFF and go to the spare entry with the reference slots.
+    dest = torch.where(is_ref, T, (spacked >> 8) & 0xFFFFFF)
+    dest = torch.clamp(dest, max=T).to(torch.int64)
     payload = to_i32(
         (torch.clamp(x, 0, n - 1).to(torch.int64) << 8)
         | (ms_slot << 1) | uniq_slot

@@ -136,3 +136,163 @@ def merge_path(a_keys, a_pay, b_keys, b_pay):
 
 
 merge_path.launches = 0
+
+
+# ------------------------------------------------------------ bitonic network
+
+# kbo_tpu's tile: every bitonic layout is a power of two of at least this
+BITONIC_MIN = 1 << 16
+
+
+def _bitonic_len(total: int) -> int:
+    M = BITONIC_MIN
+    while M < total:
+        M <<= 1
+    return M
+
+
+def _lex_gt(a, b, n_comps: int):
+    """Lexicographic a > b over the first n_comps rows (signed int32 rows:
+    callers flip the sign bit of uint32 patterns first)."""
+    gt = torch.zeros(a.shape[1:], dtype=torch.bool, device=a.device)
+    eq = torch.ones(a.shape[1:], dtype=torch.bool, device=a.device)
+    for c in range(n_comps):
+        gt = gt | (eq & (a[c] > b[c]))
+        eq = eq & (a[c] == b[c])
+    return gt
+
+
+def _bitonic_stages(x, n_comps: int, stages):
+    """Run compare-exchange stages over ``x`` int32 [n_ops, M] in place.
+    ``stages`` yields (s, k): distance s, direction bit k of the lower
+    index (None = ascending). Key rows are compared as uint32 by flipping
+    their sign bit for the duration."""
+    x[:n_comps] ^= -(2**31)
+    n_ops, M = x.shape
+    for s, k in stages:
+        v = x.view(n_ops, M // (2 * s), 2, s)
+        lo, hi = v[:, :, 0], v[:, :, 1]
+        if k is None:
+            swap = _lex_gt(lo, hi, n_comps)
+        else:
+            # bit k of i = g * 2s + t (t < s <= 2^(k-1)) is bit k-j-1 of g
+            g = torch.arange(M // (2 * s), device=x.device)
+            desc = ((g >> (k - s.bit_length())) & 1).bool()[:, None]
+            swap = torch.where(
+                desc, _lex_gt(hi, lo, n_comps), _lex_gt(lo, hi, n_comps)
+            )
+        new_lo = torch.where(swap, hi, lo)
+        new_hi = torch.where(swap, lo, hi)
+        v[:, :, 0] = new_lo
+        v[:, :, 1] = new_hi
+    x[:n_comps] ^= -(2**31)
+    return x
+
+
+def _merge_layout(a_ops, b_ops):
+    """kbo_tpu's bitonic merge input: A ++ all-ones pads ++ reverse(B),
+    padded to a power of two of at least 65 536."""
+    n_ops, na = a_ops.shape
+    nb = b_ops.shape[1]
+    M = _bitonic_len(na + nb)
+    x = torch.full((n_ops, M), -1, dtype=torch.int32, device=a_ops.device)
+    x[:, :na] = a_ops
+    x[:, M - nb :] = b_ops.flip(1)
+    return x
+
+
+def bitonic_merge_plain(a_ops, b_ops, n_comps: int):
+    """Plain version of :func:`bitonic_merge`: the half-cleaner stages as
+    whole-tensor ops."""
+    x = _merge_layout(a_ops, b_ops)
+    M = x.shape[1]
+    return _bitonic_stages(
+        x, n_comps, ((M >> (j + 1), None) for j in range(M.bit_length() - 1))
+    )
+
+
+def _sort_stages(M: int):
+    lm = M.bit_length() - 1
+    for k in range(1, lm + 1):
+        for j in range(k - 1, -1, -1):
+            yield 1 << j, k
+
+
+def _sort_layout(ops):
+    n_ops, n = ops.shape
+    x = torch.full((n_ops, _bitonic_len(n)), -1, dtype=torch.int32,
+                   device=ops.device)
+    x[:, :n] = ops
+    return x
+
+
+def bitonic_sort_plain(ops, n_comps: int):
+    """Plain version of :func:`bitonic_sort`: every stage of the network as
+    whole-tensor ops."""
+    n = ops.shape[1]
+    x = _sort_layout(ops)
+    return _bitonic_stages(x, n_comps, _sort_stages(x.shape[1]))[:, :n]
+
+
+@functools.cache
+def _bitonic_lib():
+    lib = _build.load("bitonic")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.kbo_bitonic_merge, lib.kbo_bitonic_sort):
+        fn.argtypes = [p, i, i, ctypes.c_longlong, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_ops(ops, what):
+    if ops.dtype != torch.int32 or ops.dim() != 2:
+        raise TypeError(f"{what} wants int32 operand rows [n_ops, n]")
+
+
+def _run_bitonic(fn, x, n_comps: int, what: str):
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), x.shape[0], n_comps, x.shape[1],
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, what)
+
+
+def bitonic_merge(a_ops, b_ops, n_comps: int):
+    """Merge two operand tables sorted by their first ``n_comps`` rows, as
+    kbo_tpu's ``bitonic_merge(..., slice_output=False)``.
+
+    a_ops/b_ops: int32 ``[n_ops, n]`` rows of uint32 patterns (key words,
+    then payloads). Returns ``[n_ops, M]``, M = pow2 >= max(65536, na+nb):
+    the merge followed by all-ones pads (payload 0xFFFFFFFF), equal keys in
+    the network's (not a stable) order. CUDA tensors launch
+    ``csrc/bitonic.cu``; CPU tensors take :func:`bitonic_merge_plain`.
+    """
+    if a_ops.device.type == "cpu":
+        return bitonic_merge_plain(a_ops, b_ops, n_comps)
+    _check_ops(a_ops, "bitonic_merge")
+    _check_ops(b_ops, "bitonic_merge")
+    if b_ops.device != a_ops.device or b_ops.shape[0] != a_ops.shape[0]:
+        raise ValueError("bitonic_merge operands must match in rows and device")
+    x = _merge_layout(a_ops, b_ops)
+    _run_bitonic(_bitonic_lib().kbo_bitonic_merge, x, n_comps, "bitonic_merge")
+    bitonic_merge.launches += 1
+    return x
+
+
+bitonic_merge.launches = 0
+
+
+def bitonic_sort(ops, n_comps: int):
+    """Sort operand rows by their first ``n_comps`` rows, as kbo_tpu's
+    ``bitonic_sort``: all-ones pads to a power of two >= 65536, the full
+    network, the first n columns back. Not stable. CUDA tensors launch
+    ``csrc/bitonic.cu``; CPU tensors take :func:`bitonic_sort_plain`."""
+    if ops.device.type == "cpu":
+        return bitonic_sort_plain(ops, n_comps)
+    _check_ops(ops, "bitonic_sort")
+    x = _sort_layout(ops)
+    _run_bitonic(_bitonic_lib().kbo_bitonic_sort, x, n_comps, "bitonic_sort")
+    bitonic_sort.launches += 1
+    return x[:, : ops.shape[1]]
+
+
+bitonic_sort.launches = 0

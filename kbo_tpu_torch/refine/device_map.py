@@ -1,19 +1,23 @@
-"""Single-fetch map assembly (PyTorch; counterpart of
+"""Single-fetch map refinement and assembly (PyTorch; counterpart of
 kbo_tpu/refine/device_map.py, single-device branch).
 
-After the 3-bit sweep and the candidate compaction
-(kernels/mapsweep.py) the translation stays on the device: patches land by
-priority, ``relative_to_ref`` is applied there, and the steady-state
-``map_batch`` pays ONE device->host fetch that carries the delta runs, the
-counters and the overflow indicators together. The host paints the runs
-onto a copy of the reference.
+After the 3-bit sweep and the candidate compaction (kernels/mapsweep.py)
+the refinement stays on the device: variant resolution and gap scoring
+(kernels/refine.py), priority-ordered patch assembly and
+``relative_to_ref``. The steady-state ``map_batch`` pays ONE device->host
+fetch that carries the delta runs, the counters and the fallback indicators
+together; the host paints the runs onto a copy of the reference. The host
+touches candidate data only on the rare fallback paths:
 
-This slice covers ``MapOpts(fill_gaps=False, call_variants=False)``: the
-patch grids are empty. The device refinement (kbo_tpu/kernels/refine.py:
-gap scoring and variant resolution) is the next slice of the port and reads
-the candidate tables ``pieces`` that this path already computes.
+- capacity overflow (more drops/gap runs than the optimistic slots): the
+  caller re-runs the postprocess stage at exact capacities;
+- ``needs_host`` gaps (extension lanes beyond the device budgets) and gap
+  runs beyond the device scoring capacity: scored by the exact host
+  evaluator (refine/gap_filling.py) from the device's candidate grid, then
+  one re-assembly.
 
-Reference semantics: map = src/lib.rs:720-761.
+Reference semantics: map = src/lib.rs:720-761; variant calling =
+src/variant_calling.rs:249-294; gap filling = src/gap_filling.rs:444-526.
 """
 
 from __future__ import annotations
@@ -25,13 +29,22 @@ from kbo_tpu_torch.kernels.mapsweep import (
     assemble_map_prio_core,
     fetch_delta_runs_extras,
 )
+from kbo_tpu_torch.kernels.refine import (
+    get_ext_table,
+    prob_bound,
+    resolve_variants_core,
+    score_gaps_core,
+    seq_keys3_tagged_core,
+    seq_keys3_tagged_rc,
+)
+from kbo_tpu_torch.refine import gap_filling
 from kbo_tpu_torch.utils.stats import get_stats
 
 
 class DevRefOverflow(Exception):
     """Candidate counts exceeded the optimistic capacities: re-run the
-    postprocess stage with ``cap_d``/``cap_g`` at least the carried
-    values."""
+    postprocess + refinement stages with ``cap_d``/``cap_g`` at least the
+    carried values."""
 
     def __init__(self, need_d: int, need_g: int):
         self.need_d = need_d
@@ -81,43 +94,79 @@ def _canvas(ref_seqs, Q: int, L: int, fmt: bool, ref_mat):
 
 
 def map_devref_finish(
-    chars_dev,
+    dev,
+    codes_dev,
     lengths_dev,
+    ms_dev,
+    chars_dev,
     pieces,
+    packed_dev,
     ref_seqs,
+    query_sbwt,
     opts,
+    threshold: int,
     cap_d: int,
     cap_g: int,
     total_gap_slack: int,
     ref_mat,
     ref_mat_dev,
+    seq_tables=None,
 ):
-    """Run the device assembly and reconstruct the output. ``ref_mat`` is
-    the padded [Q, L] raw reference matrix on the host, ``ref_mat_dev`` its
-    copy on the device.
+    """Run the device refinement + assembly and reconstruct the output.
+
+    ``dev`` is the index's :class:`~kbo_tpu_torch.kernels.ms.DeviceIndex`,
+    ``codes_dev`` / ``ms_dev`` the sweep's [Q, L] codes and MS,
+    ``chars_dev`` / ``packed_dev`` / ``pieces`` the postprocess outputs
+    (kernels/mapsweep.map_postprocess3_core), ``ref_mat`` the padded [Q, L]
+    raw reference matrix on the host and ``ref_mat_dev`` its copy on the
+    device. ``seq_tables`` are the sweep's sorted query tables
+    (single contig without revcomp; see kernels/refine.py
+    resolve_variants_core), else the variant join sorts its own.
 
     Returns the list of output byte strings. Raises :class:`DevRefOverflow`
     when the candidate capacities were too small (the caller re-runs the
-    postprocess stage): the refinement that reads those tables must see all
-    of them, so the check stands with the refinement switched off too.
+    postprocess stage).
     """
-    if opts.fill_gaps:
-        raise NotImplementedError(
-            "map_ with fill_gaps=True: the device gap scoring "
-            "(kernels/refine.py score_gaps) is ROADMAP Queue 1 item 4b"
-        )
-    if opts.call_variants:
-        raise NotImplementedError(
-            "map_ with call_variants=True: the device variant resolution "
-            "(kernels/refine.py resolve_variants) is ROADMAP Queue 1 item 4b"
-        )
-    Q, L = chars_dev.shape
+    k = dev.k
+    Q, L = codes_dev.shape
     device = chars_dev.device
     fmt = bool(opts.format)
 
-    # both refinements are off: no patches to land
     pos_grids: list = []
     pv_grids: list = []
+    n_var_dev = torch.zeros((), dtype=torch.int32, device=device)
+    gap_counters_dev = torch.zeros(3, dtype=torch.int32, device=device)
+    needs_host_dev = None
+    cap_ge = cap_g  # device gap scoring covers every compacted slot
+    # extension lanes scale with the TOTAL gap count across contigs: about
+    # 2 lanes per gap on SNP-dense inputs (4x headroom here); an overflow
+    # flags the owning gaps to the host evaluator, so undersizing costs a
+    # host pass, not correctness
+    cap_ext = _pow2_cap(max(4 * cap_g, 32 * Q), lo=256)
+    if opts.fill_gaps:
+        gpos, gpv, needs_host_dev, gap_counters_dev = score_gaps_core(
+            dev.keys3, ref_mat_dev, lengths_dev, pieces["gap_start"],
+            pieces["gap_end_at"], pieces["grid"], threshold, k, cap_ge,
+            cap_ext, get_ext_table(dev), prob_bound(opts.max_error_prob),
+        )
+        pos_grids.append(gpos)
+        pv_grids.append(gpv)
+    if opts.call_variants:
+        seq_words = None
+        if seq_tables is None:
+            # the reference's inner sequence index reuses the BuildOpts
+            # (src/lib.rs:553): with add_revcomp it holds both strands
+            if opts.sbwt_build_opts.add_revcomp:
+                seq_words = seq_keys3_tagged_rc(codes_dev, k)
+            else:
+                seq_words = seq_keys3_tagged_core(codes_dev, k)
+        vpos, vpv, n_var_dev = resolve_variants_core(
+            dev.keys3, seq_words, codes_dev, ref_mat_dev, ms_dev, lengths_dev,
+            pieces["drop_pos"], pieces["apos"], pieces["arow"], threshold, k,
+            cap_d, d_lo=max(int(threshold) - 1, 0), seq_tables=seq_tables,
+        )
+        pos_grids.append(vpos)
+        pv_grids.append(vpv)
 
     # Optimistic run budget: ~1 delta run per variant site (L/1024 slots)
     # + a quarter of the gap slack + flanks; an underestimate pays one
@@ -127,28 +176,68 @@ def map_devref_finish(
         chars_dev, ref_mat_dev, lengths_dev, pos_grids, pv_grids, fmt, cap_r
     )
     counts = pieces["counts"]
-    zeros = torch.zeros(5, dtype=torch.int32, device=device)
+    zero = torch.zeros(1, dtype=torch.int32, device=device)
     extras_dev = torch.cat(
         [
             counts[:, 0].max()[None],  # 0: max drops per contig
             counts[:, 1].max()[None],  # 1: max gap runs per contig
-            # 2: gaps needing the host evaluator; 3,4,5: gaps_seen,
-            # gaps_filled, unfilled; 6: variants resolved -- all counters
-            # of the refinement, which is off
-            zeros,
+            # 2: gaps needing the host evaluator
+            zero if needs_host_dev is None
+            else needs_host_dev.sum(dtype=torch.int32)[None],
+            gap_counters_dev,  # 3, 4, 5: gaps_seen, gaps_filled, unfilled
+            n_var_dev[None],  # 6: variants resolved
             pieces["clamped_gap"].sum(dtype=torch.int32)[None],  # 7
         ]
     )
 
-    # ONE fetch: delta runs + counters + overflow indicators together.
+    # ONE fetch: delta runs + counters + fallback indicators together.
     delta = fetch_delta_runs_extras(*assembled, extras_dev, cap_r).cpu().numpy()
     n_runs = int(delta[3, 0])
     extras = delta[3, 2:10]
-    max_d, max_g = int(extras[0]), int(extras[1])
+    max_d, max_g, n_need_host = int(extras[0]), int(extras[1]), int(extras[2])
     if max_d > cap_d or max_g > cap_g:
         raise DevRefOverflow(max_d, max_g)
 
-    get_stats().add("gap_bases_unfilled", int(extras[7]))
+    stats = get_stats()
+    if opts.fill_gaps:
+        stats.add("gaps_to_host", n_need_host)
+        stats.add("gaps_seen", int(extras[3]))
+        stats.add("gaps_filled", int(extras[4]))
+        stats.add("gap_bases_unfilled", int(extras[5]))
+    else:
+        stats.add("gap_bases_unfilled", int(extras[7]))
+    if opts.call_variants:
+        stats.add("variants_called", int(extras[6]))
+
+    if opts.fill_gaps and (n_need_host > 0 or max_g > cap_ge):
+        # rare path: some gaps exceeded the device extension budgets. Fetch
+        # the packed candidate block + flags, score those gaps on the host
+        # FROM THE DEVICE GRID (the host extension walks the host index's
+        # own keys), re-assemble with the extra patches, re-fetch.
+        extra_pos, extra_pv, extra_unfilled = _host_gap_patches(
+            needs_host_dev, packed_dev, pieces, ref_seqs, query_sbwt, opts,
+            threshold, cap_d, cap_g, cap_ge, L, n_need_host,
+        )
+        stats.add("gap_bases_unfilled", extra_unfilled)
+        if extra_pos:
+            ep = np.concatenate(extra_pos)
+            ev = np.concatenate(extra_pv)
+            cap_p = _pow2_cap(ep.size, lo=64)
+            ep_pad = np.full(cap_p, Q * L, dtype=np.int32)
+            ev_pad = np.zeros(cap_p, dtype=np.int32)
+            ep_pad[: ep.size] = ep
+            ev_pad[: ev.size] = ev
+            pos_grids.append(torch.from_numpy(ep_pad).to(device))
+            pv_grids.append(torch.from_numpy(ev_pad).to(device))
+            assembled = assemble_map_prio_core(
+                chars_dev, ref_mat_dev, lengths_dev, pos_grids, pv_grids, fmt,
+                cap_r,
+            )
+            delta = (
+                fetch_delta_runs_extras(*assembled, extras_dev, cap_r)
+                .cpu().numpy()
+            )
+            n_runs = int(delta[3, 0])
 
     if n_runs > cap_r:
         # run arrays are emitted capped, so an undersized budget re-runs
@@ -171,3 +260,50 @@ def map_devref_finish(
         canvas[q * L : q * L + row_lens[q]].tobytes()
         for q in range(len(ref_seqs))
     ]
+
+
+def _host_gap_patches(needs_host_dev, packed_dev, pieces, ref_seqs,
+                      query_sbwt, opts, threshold: int, cap_d: int,
+                      cap_g: int, cap_ge: int, L: int, n_need_host: int):
+    """Gap patches from the exact host evaluator for the gaps the device
+    flagged (and any beyond its scoring capacity): (flat positions, packed
+    gap-priority values, unfilled bases) per contig."""
+    Q = len(ref_seqs)
+    need = (
+        needs_host_dev.reshape(-1, cap_ge).cpu().numpy()
+        if n_need_host
+        else np.zeros((Q, cap_ge), dtype=bool)
+    )
+    w_grid = int(pieces["grid"].shape[-1])
+    block = packed_dev.cpu().numpy()
+    bcounts = block[:, :2]
+    packed = block[:, 2:]
+    grid_off = 3 * cap_d + 2 * cap_g
+    extra_pos: list[np.ndarray] = []
+    extra_pv: list[np.ndarray] = []
+    extra_unfilled = 0
+    for q, ref_seq in enumerate(ref_seqs):
+        ng = int(bcounts[q, 1])
+        sel = [j for j in range(ng) if j >= cap_ge or need[q, j]]
+        if not sel:
+            continue
+        ref_seq = bytes(ref_seq)
+        starts = packed[q, cap_d : cap_d + ng]
+        ends = packed[q, cap_d + cap_g : cap_d + cap_g + ng]
+        runs = [(int(starts[j]), int(ends[j])) for j in sel]
+        grid_all = packed[q, grid_off : grid_off + cap_g * w_grid]
+        grid_sel = grid_all.reshape(cap_g, w_grid)[sel]
+        gp = gap_filling.fill_gaps_patches(
+            runs, None, ref_seq, query_sbwt, threshold, opts.max_error_prob,
+            grid=grid_sel,
+        )
+        clamped = sum(
+            max(0, min(e, len(ref_seq) - threshold) - s) for s, e in runs
+        )
+        extra_unfilled += max(0, clamped - len(gp))
+        if gp:
+            pp = np.fromiter((p for p, _ in gp), dtype=np.int64)
+            vv = np.fromiter((v for _, v in gp), dtype=np.int64)
+            extra_pos.append((pp + q * L).astype(np.int32))
+            extra_pv.append(((1 << 8) | vv).astype(np.int32))  # gap priority
+    return extra_pos, extra_pv, extra_unfilled

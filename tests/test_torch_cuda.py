@@ -19,6 +19,10 @@ from kbo_tpu_torch.kernels.postprocess import (
 )
 from kbo_tpu_torch.kernels.sort import (
     _radix_sort,
+    bitonic_merge,
+    bitonic_merge_plain,
+    bitonic_sort,
+    bitonic_sort_plain,
     merge_path,
     merge_path_plain,
     to_i32,
@@ -155,3 +159,62 @@ def test_map_on_card_equals_cpu(cuda, fmt):
     assert got == kbo_tpu_torch.map_batch(contigs, idx, opts, device="cpu")
     one = kbo_tpu_torch.map_(contigs[0], idx, opts, device=cuda)
     assert one == got[0]
+
+
+@pytest.mark.parametrize("na,nb,W", [(70_000, 50_000, 2), (1, 3000, 4),
+                                     (200_000, 1, 8), (0, 5, 4)])
+def test_bitonic_merge_kernel(cuda, na, nb, W):
+    """Bit-equal to the plain network, payloads and pads included; W=8
+    (nine operand rows) takes the smaller shared-memory tile."""
+    rng = np.random.default_rng(na + nb + W)
+    a = _sorted_words(rng, W, na, 0xFFFFFFFF, cuda, pad_share=0.01)
+    b = _sorted_words(rng, W, nb, 0xFFFFFFFF, cuda, pad_share=0.01)
+    a_ops = torch.cat([a, torch.arange(na, dtype=torch.int32,
+                                       device=cuda)[None]])
+    b_ops = torch.cat([b, torch.arange(nb, dtype=torch.int32,
+                                       device=cuda)[None] + na])
+    before = bitonic_merge.launches
+    got = bitonic_merge(a_ops, b_ops, W)
+    torch.cuda.synchronize()
+    assert bitonic_merge.launches == before + 1
+    assert torch.equal(got, bitonic_merge_plain(a_ops, b_ops, W))
+
+
+@pytest.mark.parametrize("n,W", [(100_000, 2), (65_536, 4), (300_000, 3)])
+def test_bitonic_sort_kernel(cuda, n, W):
+    rng = np.random.default_rng(n + W)
+    raw = rng.integers(0, 9, (W, n)).astype(np.int64) * (0xFFFFFFFF // 8)
+    ops = torch.cat([
+        to_i32(torch.from_numpy(raw)).to(cuda),
+        torch.arange(n, dtype=torch.int32, device=cuda)[None],
+    ])
+    before = bitonic_sort.launches
+    got = bitonic_sort(ops, W)
+    torch.cuda.synchronize()
+    assert bitonic_sort.launches == before + 1
+    assert torch.equal(got, bitonic_sort_plain(ops, W))
+    keys, _ = _radix_sort(ops[:W])
+    assert torch.equal(got[:W], keys)
+
+
+@pytest.mark.parametrize("fmt", [True, False])
+def test_default_map_on_card_equals_cpu(cuda, fmt):
+    """MapOpts() on the card: gap scoring and variant resolution, one
+    contig (sweep-table reuse) and three (the tagged join)."""
+    rng = np.random.default_rng(8)
+    ref = BASES[rng.integers(0, 4, 30_000)].tobytes()
+    query = bytearray(ref)
+    for p in range(300, 29_000, 700):
+        query[p] = BASES[rng.integers(0, 4)]
+    del query[15_000:15_003]
+    for p in range(20_000, 20_120):
+        query[p] = BASES[rng.integers(0, 4)]
+    bo = kbo_tpu_torch.BuildOpts(k=51, build_select=True)
+    idx = kbo_tpu_torch.build([bytes(query)], bo)
+    opts = kbo_tpu_torch.MapOpts(format=fmt, sbwt_build_opts=bo)
+    for refs in ([ref], [ref[:9000], ref[9000:9500], ref[9500:]]):
+        merge_path.launches = clamp_scan.launches = 0
+        got = kbo_tpu_torch.map_batch(refs, idx, opts, device=cuda)
+        # the sweep's join and the variant join
+        assert merge_path.launches == 2 and clamp_scan.launches == 4
+        assert got == kbo_tpu_torch.map_batch(refs, idx, opts, device="cpu")

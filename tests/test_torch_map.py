@@ -1,5 +1,8 @@
-"""The port's map_ / map_batch against kbo_tpu's, on the CPU, for
-``MapOpts(fill_gaps=False, call_variants=False)``.
+"""The port's map_ / map_batch against kbo_tpu's, on the CPU: the sweep,
+candidate tables and assembly with the refinements off, and the default
+``MapOpts()`` on the reference's map doctests and tiny inputs
+(tests/test_torch_map_devref.py and test_torch_map_fuzz.py hold the
+refinement at larger sizes).
 
 kbo_tpu.api.map_batch runs its single-device fused branch (the same one the
 port carries over); kbo_tpu.api.map_ sends inputs under 256 bases to the
@@ -120,6 +123,18 @@ def test_map_doctests(fmt, want):
     assert got == kbo_tpu.map_(
         reference, jidx, _opts(kbo_tpu, fmt, max_error_prob=0.1)
     )
+    # the same doctest with the default refinements on, against kbo_tpu's
+    # host oracle and its device refinement path
+    full = kbo_tpu_torch.map_batch(
+        [reference], tidx,
+        kbo_tpu_torch.MapOpts(max_error_prob=0.1, format=fmt,
+                              sbwt_build_opts=kbo_tpu_torch.BuildOpts(k=7)),
+        device="cpu",
+    )
+    jopts = kbo_tpu.MapOpts(max_error_prob=0.1, format=fmt,
+                            sbwt_build_opts=kbo_tpu.BuildOpts(k=7))
+    assert full == [kbo_tpu.map_(reference, jidx, jopts)]
+    assert full == japi.map_batch([reference], jidx, jopts)
 
 
 @pytest.mark.parametrize("fmt", [True, False])
@@ -141,7 +156,7 @@ def test_map_overflow_retry(fmt, monkeypatch):
         try:
             return real(*a, **kw)
         except device_map.DevRefOverflow as o:
-            raised.append((o.need_d, o.need_g, a[5], a[6]))
+            raised.append((o.need_d, o.need_g, a[11], a[12]))
             raise
 
     monkeypatch.setattr(tapi, "map_devref_finish", spy)
@@ -201,18 +216,24 @@ def test_map_chunked_sweep_equals_single_shot(monkeypatch):
 @pytest.mark.parametrize(
     "kw", [{"fill_gaps": True}, {"call_variants": True}, {}]
 )
-def test_map_refinement_not_ported(kw):
-    """The refinements raise; they never fall to the host."""
-    tidx, _ = _both_indexes(b"ACGTACGTAGGATTACAGATTACA", 5)
+def test_map_refinement_equals_kbo_tpu(kw):
+    """Gap filling, variant calling and both (the default MapOpts()) on a
+    tiny input; kbo_tpu answers it from its host oracle (under 256 bases)."""
+    tidx, jidx = _both_indexes(b"ACGTACGTAGGATTACAGATTACA", 5)
     base = {"fill_gaps": False, "call_variants": False}
-    opts = kbo_tpu_torch.MapOpts(**({**base, **kw} if kw else {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kbo_tpu_torch.map_(b"ACGTACGTAGG", tidx, opts, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        device_map.map_devref_finish(
-            torch.zeros((1, 4), dtype=torch.uint8), None, {}, [b"ACGT"], opts,
-            256, 256, 0, None, None,
+    for fmt in (True, False):
+        got = kbo_tpu_torch.map_(
+            b"ACGTACGTAGG", tidx,
+            kbo_tpu_torch.MapOpts(**({**base, **kw} if kw else {}), format=fmt,
+                                  sbwt_build_opts=kbo_tpu_torch.BuildOpts(k=5)),
+            device="cpu",
         )
+        want = kbo_tpu.map_(
+            b"ACGTACGTAGG", jidx,
+            kbo_tpu.MapOpts(**({**base, **kw} if kw else {}), format=fmt,
+                            sbwt_build_opts=kbo_tpu.BuildOpts(k=5)),
+        )
+        assert got == want and len(got) == 11
 
 
 def test_map_other_paths_raise():
@@ -225,6 +246,9 @@ def test_map_other_paths_raise():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             kbo_tpu_torch.map_(b"ACGTACGTAGG", tidx, _opts(kbo_tpu_torch, True))
     assert tapi.max_tag(31) == 1 << 30
+    with pytest.raises(ValueError, match="sbwt_build_opts.k"):
+        kbo_tpu_torch.map_(b"ACGTACGTAGG", tidx, kbo_tpu_torch.MapOpts(),
+                           device="cpu")
 
 
 def test_paint_runs_and_canvas():
