@@ -14,9 +14,13 @@ Phases, each printed as it passes; any failure exits non-zero:
    derandomize_translate, bitonic_merge and bitonic_sort against their plain
    PyTorch versions on the card, bit-exact, at the find and map shapes (the
    variant join's shape captured from one default map_ call) and at edge
-   shapes; bitonic_sort also against the radix sort; the joins with
-   merge="bitonic" against merge="path" (ms2_core at find-core length,
-   ms3_rows_core at the map shape), launch counts read around each;
+   shapes (bitonic_merge and bitonic_sort also at M = 2^16..2^18 with 3, 5,
+   7 and 9 operand rows: na = 0, nb = 0, na + nb = M), each bitonic call's
+   passes over device memory and its tile blocks' shared memory, and
+   bitonic.cu's registers and spills as ptxas reported them; bitonic_sort
+   also against the radix sort; the joins with merge="bitonic" against
+   merge="path" (ms2_core at find-core length, ms3_rows_core at the map
+   shape), launch counts read around each;
 4. the find slice at full size on bench.py's workload (a 4.6 Mbase genome
    from default_rng(42) with a SNP per kb and sparse 3-base deletions,
    k=51): find-core (ms2_core -> derandomize_translate over the streamed
@@ -36,8 +40,9 @@ Phases, each printed as it passes; any failure exits non-zero:
 6. times on the card (CUDA events or the host clock, medians of 7; by
    stage, the refinement's stages and the per-index extension table
    included), each with the card's name and power limit, then one
-   torch.profiler run of each workload: device busy share and the kernels
-   that take the time.
+   torch.profiler run of each workload (and of one bitonic merge and one
+   bitonic sort, by pass kind): device busy share and the kernels that take
+   the time.
 
 Prints the per-kernel JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -47,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +72,25 @@ def _hbm_bytes_per_s(name: str) -> float:
     if "NVL" in name:
         return 3.9e12
     return 3.35e12  # H100 SXM, 80 GB HBM3
+
+
+def _ptxas_summary(report: str):
+    """(kernel, registers, stack bytes, spill store bytes, spill load
+    bytes) of each entry function in a ``ptxas -v`` report."""
+    out = []
+    for block in report.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        name = mangled
+        for kname in ("regs_pass", "tile_pass"):
+            if kname in mangled:
+                arg = re.search(kname + r"ILi(\d+)E", mangled)
+                name = f"{kname}<{arg.group(1)}>" if arg else kname
+        regs = re.search(r"Used (\d+) registers", block)
+        mem = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", block)
+        out.append((name, int(regs.group(1)) if regs else None,
+                    *(int(x) for x in (mem.groups() if mem else (-1,) * 3))))
+    return out
 
 
 def _workload(n: int):
@@ -121,7 +146,10 @@ def main() -> int:
         score_gaps_core,
     )
     from kbo_tpu_torch.kernels.sort import (
+        RegsPass,
+        _bitonic_len,
         _bitonic_lib,
+        _bitonic_passes,
         _lib as sort_lib,
         _pack_key_words,
         _radix_sort,
@@ -162,6 +190,10 @@ def main() -> int:
     print(f"build: merge_path, clamp_scan, derand_translate, bitonic "
           f"compiled/loaded in {time.perf_counter() - t0:.1f}s (nvcc "
           f"{secs:.1f}s)", flush=True)
+    for name, regs, stack, st, ld in _ptxas_summary(
+            _build.resource_report("bitonic")):
+        print(f"ptxas bitonic.cu {name}: {regs} registers, {stack} B stack "
+              f"frame, {st} B spill stores, {ld} B spill loads", flush=True)
 
     # ---- reference values on a small input, through the entry points
     # (reference: src/index.rs:238-240 MS vector, src/lib.rs:594-610 matches)
@@ -340,6 +372,16 @@ def main() -> int:
     def ops_of(keys, pay):
         return torch.cat([keys, pay[None]])
 
+    def passes_of(M, n_ops, sort):
+        """The passes over device memory (one launch each) of one call and
+        the most dynamic shared memory one of its tile blocks asks for."""
+        ps = _bitonic_passes(M, n_ops, sort)
+        regs = sum(isinstance(p, RegsPass) for p in ps)
+        smem = max(4 * n_ops << p.log_tile for p in ps
+                   if not isinstance(p, RegsPass))
+        return (f"{len(ps)} passes ({regs} register, {len(ps) - regs} tile, "
+                f"tile blocks of up to {smem} B shared memory)")
+
     bitonic_in = {}
     for label in ("find-core", "map", "rk-vs-seq"):
         (ak, ap, bk, bp), _ = shapes[label]
@@ -347,6 +389,8 @@ def main() -> int:
         got = bitonic_merge(*bitonic_in[label])
         check("bitonic_merge", f"{label} W={ak.shape[0]} M={got.shape[1]}",
               [got], [bitonic_merge_plain(*bitonic_in[label])])
+        print(f"bitonic_merge {label} M={got.shape[1]}, {got.shape[0]} rows: "
+              f"{passes_of(got.shape[1], got.shape[0], False)}", flush=True)
         del got
     q_words, _ = pack_windows_2bit(buf, K)
     meta = torch.arange(buf.shape[0], dtype=torch.int32, device=cuda)
@@ -355,6 +399,9 @@ def main() -> int:
     got = bitonic_sort(sort_in, 4)
     check("bitonic_sort", f"find-core query side n={sort_in.shape[1]} W=4",
           [got], [bitonic_sort_plain(sort_in, 4)])
+    sort_M = _bitonic_len(sort_in.shape[1])
+    print(f"bitonic_sort query side M={sort_M}, {sort_in.shape[0]} rows: "
+          f"{passes_of(sort_M, sort_in.shape[0], True)}", flush=True)
     keys, (pay,) = _radix_sort(sort_in[:4], [sort_in[4]])
     if not (torch.equal(got[:4], keys) and torch.equal(
             _radix_sort(got)[0], _radix_sort(ops_of(keys, pay))[0])):
@@ -367,6 +414,23 @@ def main() -> int:
         check("bitonic_merge", f"edge na={na} nb={nb} W=8",
               [bitonic_merge(ops_of(*a), ops_of(*b), 8)],
               [bitonic_merge_plain(ops_of(*a), ops_of(*b), 8)])
+    # each pass type's corners: at M = 2^16..2^18 the stages above the
+    # largest tile leave every remainder of a register pass's stages;
+    # merges with na = 0, nb = 0 and na + nb = M exactly, and a sort
+    for lm in (16, 17, 18):
+        M = 1 << lm
+        for n_ops in (3, 5, 7, 9):
+            W = n_ops - 1
+            for na, nb in ((0, M // 2 + 1), (M // 2 + 3, 0), (M // 2, M // 2)):
+                a, b = ops_of(*rand_sorted(na, W)), ops_of(*rand_sorted(nb, W))
+                check("bitonic_merge", f"corner M={M} rows={n_ops} na={na} "
+                      f"nb={nb} ({passes_of(M, n_ops, False)})",
+                      [bitonic_merge(a, b, W)], [bitonic_merge_plain(a, b, W)])
+            perm = torch.from_numpy(g.permutation(M - 5)).to(cuda)
+            s_in = ops_of(*rand_sorted(M - 5, W))[:, perm]
+            check("bitonic_sort", f"corner n={M - 5} rows={n_ops} "
+                  f"({passes_of(M, n_ops, True)})",
+                  [bitonic_sort(s_in, W)], [bitonic_sort_plain(s_in, W)])
 
     # derandomize_translate: equal to the plain version below each row's
     # true length, 0 at and past it
@@ -870,15 +934,15 @@ def main() -> int:
             dev_ms(lambda: bitonic_merge_plain(a_ops, b_ops, W)),
             2 * M * (W + 1) * 4 / hbm * 1e3,
             dev_ms(lib_sort_of(torch.cat([a_ops[:W], b_ops[:W]], 1))),
-            f"M={M} (padded to {bitonic_merge(a_ops, b_ops, W).shape[1]}), "
-            f"W={W}",
+            f"M={M} (padded to {_bitonic_len(M)}), W={W}, "
+            f"{passes_of(_bitonic_len(M), W + 1, False)}",
         )
     rows["query sort"] = {"bitonic_sort": (
         dev_ms(lambda: bitonic_sort(sort_in, 4)),
         dev_ms(lambda: bitonic_sort_plain(sort_in, 4)),
         2 * sort_in.numel() * 4 / hbm * 1e3,
         dev_ms(lib_sort_of(sort_in[:4])),
-        f"n={sort_in.shape[1]}, W=4 + 1 payload",
+        f"n={sort_in.shape[1]}, W=4 + 1 payload, {passes_of(sort_M, 5, True)}",
     )}
     # derandomize_translate: ms read once, one byte written per position,
     # the true lengths read once
@@ -894,6 +958,22 @@ def main() -> int:
             None,
             f"Q={q_rows}, L={width}",
         )
+    # the sort's first pass alone: phases 1..log2(tile) in one tile pass,
+    # reading the operands and the pads straight from sort_in
+    first = _bitonic_passes(sort_M, 5, True)[0]
+    scratch = torch.empty((5, sort_M), dtype=torch.int32, device=cuda)
+
+    def block_sort():
+        _build.check(_bitonic_lib().kbo_bitonic_tile(
+            scratch.data_ptr(), 5, 4, sort_M, first.log_tile, first.k,
+            first.k_end, first.j, sort_in.data_ptr(), sort_in.shape[1],
+            sort_in.data_ptr(), 0, 1,
+            torch.cuda.current_stream().cuda_stream), "block sort")
+
+    print(f"{tag} bitonic_sort query sort: its first pass (phases 1.."
+          f"{first.k_end} in tiles of {1 << first.log_tile}) alone "
+          f"{dev_ms(block_sort):.3f} ms", flush=True)
+    del scratch
     for label, r in rows.items():
         for name, (t_k, t_p, t_b, t_l, shape) in r.items():
             lib = f", torch.sort passes {t_l:.3f} ms" if t_l is not None else ""
@@ -932,6 +1012,10 @@ def main() -> int:
               lambda: api.map_(ref, index, mopts(True), device=cuda))
     breakdown("map_ MapOpts() format=True",
               lambda: api.map_(ref, index, dopts(True), device=cuda))
+    # the bitonic calls by pass kind: regs_pass<n_ops> and tile_pass<n_ops>
+    breakdown("bitonic_merge find-core",
+              lambda: bitonic_merge(*bitonic_in["find-core"]))
+    breakdown("bitonic_sort query sort", lambda: bitonic_sort(sort_in, 4))
 
     src = "kbo_tpu_torch/kernels/csrc/"
     main = "map_ MapOpts() format=True"

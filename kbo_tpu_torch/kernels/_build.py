@@ -7,7 +7,9 @@ seconds rather than the minutes a ``torch.utils.cpp_extension`` build that
 includes ``torch/extension.h`` takes; the wrappers pass raw device pointers
 and PyTorch's current stream. A library is named by a hash of its source and
 flags, so an edited source rebuilds and an unchanged one loads from disk.
-Nothing builds at import time: the CPU tests import every module.
+``ptxas`` reports each kernel's registers, stack and spills (``-Xptxas -v``);
+the report is kept beside the library (:func:`resource_report`). Nothing
+builds at import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ NVCC_FLAGS = [
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas",
+    "-v",
 ]
 
 _lock = threading.Lock()
@@ -79,6 +83,7 @@ def build(names: list[str]) -> float:
             failed.append(f"{name}:\n{log.decode(errors='replace')}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".ptxas.txt").write_bytes(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -94,6 +99,12 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
         return lib
+
+
+def resource_report(name: str) -> str:
+    """What ``ptxas -v`` said when ``csrc/<name>.cu`` was built: registers,
+    stack frame and spill bytes of each kernel."""
+    return _lib_path(name).with_suffix(".ptxas.txt").read_text(errors="replace")
 
 
 def check(err: int, what: str) -> None:

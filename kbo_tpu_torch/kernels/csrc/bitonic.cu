@@ -4,104 +4,198 @@
 // (_cross_stage_kernel + _block_stages_kernel via _asc_stage) and
 // ::bitonic_sort (_block_sort_kernel, _block_merge_kernel,
 // _cross_stage_dir_kernel). The operands are n_ops rows of M uint32 words
-// (int32 tensors in PyTorch), M a power of two; the first n_comps rows are
-// compared lexicographically, the rest ride along as payloads. The caller
-// lays the input out as kbo_tpu does (merge: A ++ all-ones pads ++
-// reverse(B); sort: the operands ++ all-ones pads) and the network runs in
-// place.
+// (int32 tensors in PyTorch), M a power of two, n_ops <= 16; the first
+// n_comps rows are compared lexicographically, the rest ride along as
+// payloads. The network runs on kbo_tpu's layout: element i is A[i] for
+// i < na, B[M-1-i] for i >= M - nb and all-ones otherwise (the merge:
+// A ++ pads ++ reverse(B); the sort: the operands ++ pads, nb = 0).
 //
 // The network fixes the output, not the grouping of its stages into
-// launches: phase k (the sort's phases 1..log2 M; the merge is one phase),
-// stage distance s = 2^j from the top down, the pair (i, i + s) for every i
-// with bit j clear, direction bit k of i (always ascending for the merge),
-// and a swap iff the pair is out of order strictly (lo > hi ascending,
-// hi > lo descending). Ties never swap. So the output -- payloads included,
-// although a bitonic network is not stable -- is bit-equal to kbo_tpu's and
-// to the plain PyTorch version in kernels/sort.py.
+// passes: phase k (the sort's phases 1..log2 M; the merge is the one phase
+// k = log2 M, whose direction bit is 0 everywhere), stage distance
+// s = 2^j from the top down, the pair (i, i + s) for every i with bit j
+// clear, direction bit k of i, and a swap iff the pair is out of order
+// strictly (lo > hi ascending, hi > lo descending). Ties never swap. So the
+// output -- payloads included, although a bitonic network is not stable --
+// is bit-equal to kbo_tpu's and to the plain PyTorch version in
+// kernels/sort.py.
 //
-// Bound on Hopper: bytes. The merge reads and writes every word once per
-// stage, log2(M) stages; the sort log2(M)(log2(M)+1)/2 stages. Design: a
-// stage whose distance is at least the CTA tile is one launch, one thread
-// per pair, the two partner slabs read and written coalesced. All stages of
-// a phase below the tile run in one launch per phase (one launch for the
-// sort's first log2(tile) phases) inside shared memory: each CTA loads its
-// tile of every operand row, runs the stages with a barrier between them and
-// writes the tile back. The tile is the largest power of two up to 4096
-// elements whose n_ops rows fit 96 KB of shared memory. Making the cross
-// stages fewer (several distances per pass through registers) is later work.
+// Bound on Hopper: bytes. Each stage of the network touches every word, so
+// the design runs several stages per pass over device memory. The
+// schedule is made in Python (kernels/sort.py::_bitonic_passes) and
+// launched pass by pass through two entry points:
+// - kbo_bitonic_regs: r consecutive stages of one phase at distances
+//   2^j .. 2^(j-r+1). Each thread owns the 2^r elements
+//   b + e * 2^(j-r+1), e < 2^r, b with bits j-r+1..j clear: a set closed
+//   under those stages, so the pass needs no communication. Bit k of all
+//   of them is bit k of b, so each thread has one direction. Consecutive
+//   threads take consecutive b, so every row loads and stores coalesced.
+//   The 2^r x n_ops words stay in registers (r = 4 up to 5 rows, 3 up to
+//   10, 2 up to 16: at most 80 words); only the elements that took part in
+//   a swap are written back.
+// - kbo_bitonic_tile: the stages below a tile's size, in shared memory
+//   with a barrier between stages: phase k from distance 2^j down, then
+//   phases k+1..k_end whole (the sort's first log2(tile) phases in one
+//   pass). The largest tile is the largest power of two up to 16 384
+//   elements whose n_ops rows fit the 232 448 bytes of shared memory a
+//   Hopper block may ask for (8192 for 5 and 7 rows, 4096 for 9); a phase's
+//   own tile pass takes the smallest tile that holds its remaining stages.
+//   Grouping the tile's stages in registers between barriers (as the
+//   register pass does) or in warp lanes measured slower on the H100 for
+//   the merges (PERF.md, PR 4).
+// The first pass reads the layout straight from the operands and writes
+// every element into the uninitialised output, so there is no fill-and-copy
+// pass. Passes per call (5 rows): the merge at M = 2^24 takes 3 register
+// passes and 1 tile pass (4, where one pass per stage above a 4096 tile took
+// 13 and a layout fill); the sort at 2^23 takes 1 + 18 + 10 = 29 (78).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr long long kSmemBudget = 96 * 1024;
-constexpr long long kMaxTile = 4096;
+constexpr int kRegsThreads = 256;
+constexpr int kMaxTileThreads = 1024;
+constexpr long long kMaxSmem = 232448;
 
-// lexicographic x[i] > x[j] over the first n_comps rows of a [rows, stride]
-// uint32 layout
-__device__ __forceinline__ bool lex_gt(const uint32_t* x, long long stride,
-                                       long long i, long long j,
-                                       int n_comps) {
-  for (int c = 0; c < n_comps; ++c) {
-    const uint32_t a = x[c * stride + i];
-    const uint32_t b = x[c * stride + j];
-    if (a != b) return a > b;
-  }
-  return false;
+// log2 of the stages a register pass runs for n_ops rows: 2^r * n_ops words
+// per thread stay in registers (kernels/sort.py::_bitonic_r is the same)
+__host__ __device__ constexpr int regs_log(int n_ops) {
+  return n_ops <= 5 ? 4 : (n_ops <= 10 ? 3 : 2);
 }
 
-__device__ __forceinline__ void exchange(uint32_t* x, long long stride,
-                                         long long i, long long j, int n_ops,
-                                         int n_comps, int dir) {
-  const bool swap =
-      dir ? lex_gt(x, stride, j, i, n_comps) : lex_gt(x, stride, i, j, n_comps);
-  if (swap) {
-    for (int c = 0; c < n_ops; ++c) {
-      const uint32_t t = x[c * stride + i];
-      x[c * stride + i] = x[c * stride + j];
-      x[c * stride + j] = t;
+// word c of element i of the layout A ++ all-ones ++ reverse(B)
+__device__ __forceinline__ uint32_t layout_word(const uint32_t* a,
+                                                long long na,
+                                                const uint32_t* b,
+                                                long long nb, long long M,
+                                                int c, long long i) {
+  if (i < na) return a[c * na + i];
+  if (i >= M - nb) return b[c * nb + (M - 1 - i)];
+  return 0xFFFFFFFFu;
+}
+
+// r stages of phase k at distances 2^j .. 2^(j-r+1), in registers; virt
+// reads the layout from a / b (and writes every element), else x in place
+template <int N>
+__global__ void __launch_bounds__(kRegsThreads)
+    regs_pass(uint32_t* __restrict__ x, int n_comps, long long M, int j,
+              int k, const uint32_t* __restrict__ a, long long na,
+              const uint32_t* __restrict__ b, long long nb, int virt) {
+  constexpr int R = regs_log(N);
+  constexpr int E = 1 << R;
+  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (t >= (M >> R)) return;
+  const int lo = j - R + 1;
+  const long long base = (t & ((1LL << lo) - 1)) | ((t >> lo) << (j + 1));
+  const bool desc = (base >> k) & 1;
+  uint32_t w[E][N];
+  if (virt) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const long long i = base + ((long long)e << lo);
+#pragma unroll
+      for (int c = 0; c < N; ++c) w[e][c] = layout_word(a, na, b, nb, M, c, i);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const long long i = base + ((long long)e << lo);
+#pragma unroll
+      for (int c = 0; c < N; ++c) w[e][c] = x[c * M + i];
+    }
+  }
+  unsigned moved = 0;
+#pragma unroll
+  for (int q = R - 1; q >= 0; --q) {  // global distance 2^(lo + q)
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (e & (1 << q)) continue;
+      const int f = e | (1 << q);
+      int cmp = 0;
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        if (cmp == 0 && c < n_comps)
+          cmp = (w[e][c] > w[f][c]) - (w[e][c] < w[f][c]);
+      }
+      if (desc ? cmp < 0 : cmp > 0) {
+#pragma unroll
+        for (int c = 0; c < N; ++c) {
+          const uint32_t tmp = w[e][c];
+          w[e][c] = w[f][c];
+          w[f][c] = tmp;
+        }
+        moved |= (1u << e) | (1u << f);
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (virt || ((moved >> e) & 1)) {
+      const long long i = base + ((long long)e << lo);
+#pragma unroll
+      for (int c = 0; c < N; ++c) x[c * M + i] = w[e][c];
     }
   }
 }
 
-// one stage at distance s >= the tile, in global memory; k_phase < 0 means
-// ascending everywhere (the merge)
-__global__ void cross_stage(uint32_t* ops, int n_ops, int n_comps, long long M,
-                            long long s, int k_phase) {
-  const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (p >= M / 2) return;
-  const long long i = (p / s) * 2 * s + (p % s);
-  const int dir = k_phase < 0 ? 0 : (int)((i >> k_phase) & 1);
-  exchange(ops, M, i, i + s, n_ops, n_comps, dir);
+// compare-exchange of tile slots i < l in shared memory, rows of `stride`
+template <int N>
+__device__ __forceinline__ void exchange(uint32_t* s, int stride, int i, int l,
+                                         int n_comps, bool desc) {
+  int cmp = 0;
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    if (cmp == 0 && c < n_comps) {
+      const uint32_t u = s[c * stride + i];
+      const uint32_t v = s[c * stride + l];
+      cmp = (u > v) - (u < v);
+    }
+  }
+  if (desc ? cmp < 0 : cmp > 0) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      const uint32_t tmp = s[c * stride + i];
+      s[c * stride + i] = s[c * stride + l];
+      s[c * stride + l] = tmp;
+    }
+  }
 }
 
-// phases k_begin..k_end, each with its stages of distance < tile, on one
-// tile in shared memory; with dir_on == 0 every stage is ascending
-__global__ void tile_stages(uint32_t* ops, int n_ops, int n_comps, long long M,
-                            int log_tile, int k_begin, int k_end, int dir_on) {
+// phase k_begin from distance 2^j_first down, then phases k_begin+1..k_end
+// whole, on one tile of 2^log_tile elements in shared memory; virt as for
+// regs_pass
+template <int N>
+__global__ void __launch_bounds__(kMaxTileThreads)
+    tile_pass(uint32_t* __restrict__ x, int n_comps, long long M,
+              int log_tile, int k_begin, int k_end, int j_first,
+              const uint32_t* __restrict__ a, long long na,
+              const uint32_t* __restrict__ b, long long nb, int virt) {
   extern __shared__ uint32_t sm[];
-  const long long tile = 1LL << log_tile;
-  const long long base = blockIdx.x * tile;
-  for (long long e = threadIdx.x; e < tile; e += blockDim.x) {
-    for (int c = 0; c < n_ops; ++c) sm[c * tile + e] = ops[c * M + base + e];
+  const int tile = 1 << log_tile;
+  const long long base = (long long)blockIdx.x << log_tile;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      sm[c * tile + e] = virt ? layout_word(a, na, b, nb, M, c, base + e)
+                              : x[c * M + base + e];
+    }
   }
   __syncthreads();
   for (int k = k_begin; k <= k_end; ++k) {
-    const int j_top = (k < log_tile ? k : log_tile) - 1;
-    for (int j = j_top; j >= 0; --j) {
-      const long long s = 1LL << j;
-      for (long long p = threadIdx.x; p < tile / 2; p += blockDim.x) {
-        const long long i = (p / s) * 2 * s + (p % s);
-        const int dir = dir_on ? (int)(((base + i) >> k) & 1) : 0;
-        exchange(sm, tile, i, i + s, n_ops, n_comps, dir);
+    for (int j = (k == k_begin ? j_first : k - 1); j >= 0; --j) {
+      for (int p = threadIdx.x; p < tile / 2; p += blockDim.x) {
+        const int i = ((p >> j) << (j + 1)) | (p & ((1 << j) - 1));
+        exchange<N>(sm, tile, i, i + (1 << j), n_comps, ((base + i) >> k) & 1);
       }
       __syncthreads();
     }
   }
-  for (long long e = threadIdx.x; e < tile; e += blockDim.x) {
-    for (int c = 0; c < n_ops; ++c) ops[c * M + base + e] = sm[c * tile + e];
+#pragma unroll 4
+  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) x[c * M + base + e] = sm[c * tile + e];
   }
 }
 
@@ -111,32 +205,35 @@ int log2_of(long long x) {
   return r;
 }
 
-int tile_log(int n_ops, long long M) {
-  long long t = kMaxTile;
-  while (t > 2 && t * n_ops * 4 > kSmemBudget) t >>= 1;
-  if (t > M) t = M;
-  return log2_of(t);
-}
-
-int launch_cross(uint32_t* ops, int n_ops, int n_comps, long long M,
-                 long long s, int k_phase, cudaStream_t stream) {
-  const int threads = 256;
-  const long long blocks = (M / 2 + threads - 1) / threads;
-  cross_stage<<<(unsigned)blocks, threads, 0, stream>>>(ops, n_ops, n_comps, M,
-                                                        s, k_phase);
+template <int N>
+int launch_regs(uint32_t* x, int n_comps, long long M, int j, int r, int k,
+                const uint32_t* a, long long na, const uint32_t* b,
+                long long nb, int virt, cudaStream_t stream) {
+  constexpr int R = regs_log(N);
+  if (r != R || j - R + 1 < 0 || j >= log2_of(M)) return cudaErrorInvalidValue;
+  const long long blocks = ((M >> R) + kRegsThreads - 1) / kRegsThreads;
+  regs_pass<N><<<(unsigned)blocks, kRegsThreads, 0, stream>>>(
+      x, n_comps, M, j, k, a, na, b, nb, virt);
   return (int)cudaGetLastError();
 }
 
-int launch_tiles(uint32_t* ops, int n_ops, int n_comps, long long M, int lt,
-                 int k_begin, int k_end, int dir_on, cudaStream_t stream) {
-  const long long tile = 1LL << lt;
-  const size_t smem = (size_t)(tile * n_ops * 4);
+template <int N>
+int launch_tile(uint32_t* x, int n_comps, long long M, int log_tile,
+                int k_begin, int k_end, int j_first, const uint32_t* a,
+                long long na, const uint32_t* b, long long nb, int virt,
+                cudaStream_t stream) {
+  const long long tile = 1LL << log_tile;
+  const size_t smem = (size_t)(tile * N * 4);
+  if (tile < 2 || tile > M || (long long)smem > kMaxSmem ||
+      j_first >= log_tile || (k_end > k_begin && k_end > log_tile))
+    return cudaErrorInvalidValue;
   int err = (int)cudaFuncSetAttribute(
-      tile_stages, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      tile_pass<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  const int threads = (int)(tile / 2 < kMaxThreads ? tile / 2 : kMaxThreads);
-  tile_stages<<<(unsigned)(M / tile), threads < 1 ? 1 : threads, smem,
-                stream>>>(ops, n_ops, n_comps, M, lt, k_begin, k_end, dir_on);
+  const int threads =
+      (int)(tile / 2 < kMaxTileThreads ? tile / 2 : kMaxTileThreads);
+  tile_pass<N><<<(unsigned)(M / tile), threads, smem, stream>>>(
+      x, n_comps, M, log_tile, k_begin, k_end, j_first, a, na, b, nb, virt);
   return (int)cudaGetLastError();
 }
 
@@ -144,37 +241,53 @@ int launch_tiles(uint32_t* ops, int n_ops, int n_comps, long long M, int lt,
 
 extern "C" {
 
-// half-cleaner cascade over a bitonic [n_ops, M] layout, in place
-int kbo_bitonic_merge(void* ops, int n_ops, int n_comps, long long M,
-                      void* stream) {
-  uint32_t* x = static_cast<uint32_t*>(ops);
+// one register pass: stages 2^j .. 2^(j-r+1) of phase k (k = log2 M for the
+// merge) over the [n_ops, M] buffer x; with virt, read the layout from
+// A [n_ops, na] and B [n_ops, nb] and write all of x
+int kbo_bitonic_regs(void* x, int n_ops, int n_comps, long long M, int j,
+                     int r, int k, const void* a, long long na, const void* b,
+                     long long nb, int virt, void* stream) {
+  uint32_t* xs = static_cast<uint32_t*>(x);
+  const uint32_t* as = static_cast<const uint32_t*>(a);
+  const uint32_t* bs = static_cast<const uint32_t*>(b);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int lt = tile_log(n_ops, M);
-  for (long long s = M >> 1; s >= (1LL << lt); s >>= 1) {
-    const int err = launch_cross(x, n_ops, n_comps, M, s, -1, st);
-    if (err) return err;
+  if (n_comps < 0 || n_comps > n_ops) return cudaErrorInvalidValue;
+  switch (n_ops) {
+#define KBO_REGS_CASE(N) \
+  case N:                \
+    return launch_regs<N>(xs, n_comps, M, j, r, k, as, na, bs, nb, virt, st);
+    KBO_REGS_CASE(1) KBO_REGS_CASE(2) KBO_REGS_CASE(3) KBO_REGS_CASE(4)
+    KBO_REGS_CASE(5) KBO_REGS_CASE(6) KBO_REGS_CASE(7) KBO_REGS_CASE(8)
+    KBO_REGS_CASE(9) KBO_REGS_CASE(10) KBO_REGS_CASE(11) KBO_REGS_CASE(12)
+    KBO_REGS_CASE(13) KBO_REGS_CASE(14) KBO_REGS_CASE(15) KBO_REGS_CASE(16)
+#undef KBO_REGS_CASE
   }
-  return launch_tiles(x, n_ops, n_comps, M, lt, lt, lt, 0, st);
+  return cudaErrorInvalidValue;
 }
 
-// full bitonic sort of [n_ops, M] (M a power of two), in place
-int kbo_bitonic_sort(void* ops, int n_ops, int n_comps, long long M,
-                     void* stream) {
-  uint32_t* x = static_cast<uint32_t*>(ops);
+// one tile pass over tiles of 2^log_tile elements (see tile_pass); virt as
+// for kbo_bitonic_regs
+int kbo_bitonic_tile(void* x, int n_ops, int n_comps, long long M,
+                     int log_tile, int k_begin, int k_end, int j_first,
+                     const void* a, long long na, const void* b, long long nb,
+                     int virt, void* stream) {
+  uint32_t* xs = static_cast<uint32_t*>(x);
+  const uint32_t* as = static_cast<const uint32_t*>(a);
+  const uint32_t* bs = static_cast<const uint32_t*>(b);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int lt = tile_log(n_ops, M);
-  const int lm = log2_of(M);
-  int err = launch_tiles(x, n_ops, n_comps, M, lt, 1, lt, 1, st);
-  if (err) return err;
-  for (int k = lt + 1; k <= lm; ++k) {
-    for (int j = k - 1; j >= lt; --j) {
-      err = launch_cross(x, n_ops, n_comps, M, 1LL << j, k, st);
-      if (err) return err;
-    }
-    err = launch_tiles(x, n_ops, n_comps, M, lt, k, k, 1, st);
-    if (err) return err;
+  if (n_comps < 0 || n_comps > n_ops) return cudaErrorInvalidValue;
+  switch (n_ops) {
+#define KBO_TILE_CASE(N)                                                   \
+  case N:                                                                  \
+    return launch_tile<N>(xs, n_comps, M, log_tile, k_begin, k_end,        \
+                          j_first, as, na, bs, nb, virt, st);
+    KBO_TILE_CASE(1) KBO_TILE_CASE(2) KBO_TILE_CASE(3) KBO_TILE_CASE(4)
+    KBO_TILE_CASE(5) KBO_TILE_CASE(6) KBO_TILE_CASE(7) KBO_TILE_CASE(8)
+    KBO_TILE_CASE(9) KBO_TILE_CASE(10) KBO_TILE_CASE(11) KBO_TILE_CASE(12)
+    KBO_TILE_CASE(13) KBO_TILE_CASE(14) KBO_TILE_CASE(15) KBO_TILE_CASE(16)
+#undef KBO_TILE_CASE
   }
-  return 0;
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

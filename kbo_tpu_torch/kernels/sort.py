@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -234,13 +235,85 @@ def bitonic_sort_plain(ops, n_comps: int):
     return _bitonic_stages(x, n_comps, _sort_stages(x.shape[1]))[:, :n]
 
 
+# the schedule of the CUDA network: passes over device memory, each running
+# several stages (csrc/bitonic.cu)
+_SMEM_BYTES = 232_448  # dynamic shared memory a Hopper block may ask for
+_MAX_TILE = 1 << 14
+_MAX_OPS = 16
+
+
+class RegsPass(NamedTuple):
+    """Stages at distances 2^j .. 2^(j-r+1) of phase k (None: the merge's
+    one ascending phase) in registers."""
+
+    k: int | None
+    j: int
+    r: int
+
+
+class TilePass(NamedTuple):
+    """Phase k from distance 2^j down, then phases k+1..k_end whole, in
+    shared-memory tiles of 2^log_tile elements."""
+
+    k: int | None
+    k_end: int | None
+    j: int
+    log_tile: int
+
+
+def _bitonic_r(n_ops: int) -> int:
+    """Stages per register pass: 2^r * n_ops words stay in registers."""
+    if not 1 <= n_ops <= _MAX_OPS:
+        raise ValueError(f"the bitonic kernels take 1..{_MAX_OPS} operand "
+                         f"rows, not {n_ops}")
+    return 4 if n_ops <= 5 else 3 if n_ops <= 10 else 2
+
+
+def _bitonic_tile_log(n_ops: int, M: int) -> int:
+    """log2 of the largest power of two <= 16384 (and <= M) whose n_ops
+    rows of uint32 fit a block's shared memory."""
+    t = _MAX_TILE
+    while t > 1 and t * n_ops * 4 > _SMEM_BYTES:
+        t >>= 1
+    return min(t, M).bit_length() - 1
+
+
+def _bitonic_passes(M: int, n_ops: int, sort: bool):
+    """The passes of the sort (phases 1..log2 M) or the merge (its one
+    phase) over M elements of n_ops rows, in launch order.
+
+    The sort's first pass runs phases 1..log2(tile) in one tile pass. Each
+    later phase then runs register passes of r stages from its top
+    distance down until what is left fits one tile (the last register pass
+    may reach below the largest tile), then one tile pass of the smallest
+    tile that holds the rest.
+    """
+    lm = M.bit_length() - 1
+    lt = _bitonic_tile_log(n_ops, M)
+    r = _bitonic_r(n_ops)
+    assert lt >= r
+    passes = []
+    if sort:
+        passes.append(TilePass(1, lt, 0, lt))
+        phases = [(k, k - 1) for k in range(lt + 1, lm + 1)]
+    else:
+        phases = [(None, lm - 1)]
+    for k, j in phases:
+        while j >= lt:
+            passes.append(RegsPass(k, j, r))
+            j -= r
+        if j >= 0:
+            passes.append(TilePass(k, k, j, j + 1))
+    return passes
+
+
 @functools.cache
 def _bitonic_lib():
     lib = _build.load("bitonic")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.kbo_bitonic_merge, lib.kbo_bitonic_sort):
-        fn.argtypes = [p, i, i, ctypes.c_longlong, p]
-        fn.restype = ctypes.c_int
+    p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.kbo_bitonic_regs.argtypes = [p, i, i, n, i, i, i, p, n, p, n, i, p]
+    lib.kbo_bitonic_tile.argtypes = [p, i, i, n, i, i, i, i, p, n, p, n, i, p]
+    lib.kbo_bitonic_regs.restype = lib.kbo_bitonic_tile.restype = ctypes.c_int
     return lib
 
 
@@ -249,11 +322,31 @@ def _check_ops(ops, what):
         raise TypeError(f"{what} wants int32 operand rows [n_ops, n]")
 
 
-def _run_bitonic(fn, x, n_comps: int, what: str):
+def _run_bitonic(a, b, M: int, n_comps: int, sort: bool, what: str):
+    """Launch the passes of the network on the layout A ++ all-ones pads
+    ++ reverse(B) (B empty for the sort) into a new [n_ops, M] tensor."""
+    n_ops = a.shape[0]
+    if not 0 <= n_comps <= n_ops:
+        raise ValueError(f"{what}: n_comps must be in 0..{n_ops}")
+    a, b = a.contiguous(), b.contiguous()
+    x = torch.empty((n_ops, M), dtype=torch.int32, device=a.device)
+    lib = _bitonic_lib()
+    lm = M.bit_length() - 1
+    src = (a.data_ptr(), a.shape[1], b.data_ptr(), b.shape[1])
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), x.shape[0], n_comps, x.shape[1],
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, what)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for n, ps in enumerate(_bitonic_passes(M, n_ops, sort)):
+            k = lm if ps.k is None else ps.k
+            args = (x.data_ptr(), n_ops, n_comps, M)
+            if isinstance(ps, RegsPass):
+                err = lib.kbo_bitonic_regs(*args, ps.j, ps.r, k, *src,
+                                           n == 0, stream)
+            else:
+                k_end = lm if ps.k_end is None else ps.k_end
+                err = lib.kbo_bitonic_tile(*args, ps.log_tile, k, k_end, ps.j,
+                                           *src, n == 0, stream)
+            _build.check(err, what)
+    return x
 
 
 def bitonic_merge(a_ops, b_ops, n_comps: int):
@@ -261,10 +354,12 @@ def bitonic_merge(a_ops, b_ops, n_comps: int):
     kbo_tpu's ``bitonic_merge(..., slice_output=False)``.
 
     a_ops/b_ops: int32 ``[n_ops, n]`` rows of uint32 patterns (key words,
-    then payloads). Returns ``[n_ops, M]``, M = pow2 >= max(65536, na+nb):
-    the merge followed by all-ones pads (payload 0xFFFFFFFF), equal keys in
-    the network's (not a stable) order. CUDA tensors launch
-    ``csrc/bitonic.cu``; CPU tensors take :func:`bitonic_merge_plain`.
+    then payloads), n_ops <= 16 on the card. Returns ``[n_ops, M]``,
+    M = pow2 >= max(65536, na+nb): the merge followed by all-ones pads
+    (payload 0xFFFFFFFF), equal keys in the network's (not a stable) order.
+    CUDA tensors launch ``csrc/bitonic.cu``, whose first pass reads the
+    layout straight from the operands; CPU tensors take
+    :func:`bitonic_merge_plain`.
     """
     if a_ops.device.type == "cpu":
         return bitonic_merge_plain(a_ops, b_ops, n_comps)
@@ -272,8 +367,8 @@ def bitonic_merge(a_ops, b_ops, n_comps: int):
     _check_ops(b_ops, "bitonic_merge")
     if b_ops.device != a_ops.device or b_ops.shape[0] != a_ops.shape[0]:
         raise ValueError("bitonic_merge operands must match in rows and device")
-    x = _merge_layout(a_ops, b_ops)
-    _run_bitonic(_bitonic_lib().kbo_bitonic_merge, x, n_comps, "bitonic_merge")
+    M = _bitonic_len(a_ops.shape[1] + b_ops.shape[1])
+    x = _run_bitonic(a_ops, b_ops, M, n_comps, False, "bitonic_merge")
     bitonic_merge.launches += 1
     return x
 
@@ -285,14 +380,16 @@ def bitonic_sort(ops, n_comps: int):
     """Sort operand rows by their first ``n_comps`` rows, as kbo_tpu's
     ``bitonic_sort``: all-ones pads to a power of two >= 65536, the full
     network, the first n columns back. Not stable. CUDA tensors launch
-    ``csrc/bitonic.cu``; CPU tensors take :func:`bitonic_sort_plain`."""
+    ``csrc/bitonic.cu`` (n_ops <= 16); CPU tensors take
+    :func:`bitonic_sort_plain`."""
     if ops.device.type == "cpu":
         return bitonic_sort_plain(ops, n_comps)
     _check_ops(ops, "bitonic_sort")
-    x = _sort_layout(ops)
-    _run_bitonic(_bitonic_lib().kbo_bitonic_sort, x, n_comps, "bitonic_sort")
+    n = ops.shape[1]
+    x = _run_bitonic(ops, ops[:, :0], _bitonic_len(n), n_comps, True,
+                     "bitonic_sort")
     bitonic_sort.launches += 1
-    return x[:, : ops.shape[1]]
+    return x[:, :n]
 
 
 bitonic_sort.launches = 0

@@ -197,6 +197,35 @@ def test_bitonic_sort_kernel(cuda, n, W):
     assert torch.equal(got[:W], keys)
 
 
+@pytest.mark.parametrize("lm", [16, 17, 18])
+@pytest.mark.parametrize("n_ops", [3, 5, 7, 9])
+def test_bitonic_pass_corners(cuda, lm, n_ops):
+    """Each pass type's corners: at M = 2^16..2^18 the stages above the
+    largest tile leave every remainder of a register pass's r stages;
+    merges with na = 0, nb = 0 and na + nb exactly M, and a sort. Bit-equal
+    to the plain network, payloads and pads included."""
+    M, W = 1 << lm, n_ops - 1
+    rng = np.random.default_rng(lm * 10 + n_ops)
+
+    def ops(n, first):
+        words = _sorted_words(rng, W, n, 0xFFFFFFFF, cuda, pad_share=0.01)
+        pay = torch.arange(first, first + n, dtype=torch.int32, device=cuda)
+        return torch.cat([words, pay[None]])
+
+    for na, nb in ((0, M // 2 + 1), (M // 2 + 3, 0), (M // 2, M // 2),
+                   (M // 3, M // 5)):
+        a, b = ops(na, 0), ops(nb, na)
+        got = bitonic_merge(a, b, W)
+        torch.cuda.synchronize()
+        assert got.shape == (n_ops, M)
+        assert torch.equal(got, bitonic_merge_plain(a, b, W))
+    perm = torch.from_numpy(rng.permutation(M - 5)).to(cuda)
+    unsorted = ops(M - 5, 0)[:, perm]
+    got = bitonic_sort(unsorted, W)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bitonic_sort_plain(unsorted, W))
+
+
 @pytest.mark.parametrize("fmt", [True, False])
 def test_default_map_on_card_equals_cpu(cuda, fmt):
     """MapOpts() on the card: gap scoring and variant resolution, one
