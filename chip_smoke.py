@@ -8,16 +8,22 @@ Phases, each printed as it passes; any failure exits non-zero:
 1. probe: a CUDA device must exist (no CPU fallback); prints the card's
    name and power limit as nvidia-smi reports them;
 2. build: compiles the CUDA kernels from kbo_tpu_torch/kernels/csrc into
-   kbo_tpu_torch/_build (or loads them from there);
+   kbo_tpu_torch/_build (or loads them from there), prints each kernel's
+   registers and spills as ptxas reported them and the dynamic shared
+   memory per CTA of merge_path.cu and clamp_scan.cu by W;
    then the reference's golden MS vector and matches doctest on the card;
 3. kernels: merge_path, clamp_scan (bits 2 and 3, both directions),
    derandomize_translate, bitonic_merge and bitonic_sort against their plain
    PyTorch versions on the card, bit-exact, at the find and map shapes (the
    variant join's shape captured from one default map_ call) and at edge
-   shapes (bitonic_merge and bitonic_sort also at M = 2^16..2^18 with 3, 5,
-   7 and 9 operand rows: na = 0, nb = 0, na + nb = M), each bitonic call's
-   passes over device memory and its tile blocks' shared memory, and
-   bitonic.cu's registers and spills as ptxas reported them; bitonic_sort
+   shapes (merge_path and clamp_scan also at their tile corners: a tile
+   with an empty A or B part, the last partial tile, one side wholly
+   before the other, all-equal keys over six tiles, scans of 1 to 70
+   tiles, W = 2 and 3 through the runtime-W kernels, and 20 repeat scans
+   at 4.2 M slots; bitonic_merge and bitonic_sort also at M = 2^16..2^18
+   with 3, 5, 7 and 9 operand rows: na = 0, nb = 0, na + nb = M), each
+   bitonic call's passes over device memory and its tile blocks' shared
+   memory; bitonic_sort
    also against the radix sort; the joins with merge="bitonic" against
    merge="path" (ms2_core at find-core length, ms3_rows_core at the map
    shape), launch counts read around each;
@@ -39,7 +45,8 @@ Phases, each printed as it passes; any failure exits non-zero:
    run byte for byte;
 6. times on the card (CUDA events or the host clock, medians of 7; by
    stage, the refinement's stages and the per-index extension table
-   included), each with the card's name and power limit, then one
+   included; merge_path and clamp_scan also per call in runs of 10
+   back-to-back calls), each with the card's name and power limit, then one
    torch.profiler run of each workload (and of one bitonic merge and one
    bitonic sort, by pass kind): device busy share and the kernels that take
    the time.
@@ -62,6 +69,7 @@ import numpy as np
 
 K = 51
 QN, QL = 512, 4096
+_U32 = 0xFFFFFFFF
 REPS = 7
 
 
@@ -81,10 +89,15 @@ def _ptxas_summary(report: str):
     for block in report.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
         name = mangled
-        for kname in ("regs_pass", "tile_pass"):
+        for kname in ("regs_pass", "tile_pass", "merge_kernel",
+                      "partition_kernel", "scan_kernel"):
             if kname in mangled:
-                arg = re.search(kname + r"ILi(\d+)E", mangled)
-                name = f"{kname}<{arg.group(1)}>" if arg else kname
+                args = re.match(r"I((?:Li-?\d+E)+)E",
+                                mangled.split(kname, 1)[1])
+                name = kname
+                if args:
+                    name += "<" + ", ".join(
+                        re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
         regs = re.search(r"Used (\d+) registers", block)
         mem = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                         r"(\d+) bytes spill loads", block)
@@ -190,10 +203,18 @@ def main() -> int:
     print(f"build: merge_path, clamp_scan, derand_translate, bitonic "
           f"compiled/loaded in {time.perf_counter() - t0:.1f}s (nvcc "
           f"{secs:.1f}s)", flush=True)
-    for name, regs, stack, st, ld in _ptxas_summary(
-            _build.resource_report("bitonic")):
-        print(f"ptxas bitonic.cu {name}: {regs} registers, {stack} B stack "
-              f"frame, {st} B spill stores, {ld} B spill loads", flush=True)
+    for src in ("merge_path", "clamp_scan", "bitonic"):
+        for name, regs, stack, st, ld in _ptxas_summary(
+                _build.resource_report(src)):
+            print(f"ptxas {src}.cu {name}: {regs} registers, {stack} B stack "
+                  f"frame, {st} B spill stores, {ld} B spill loads",
+                  flush=True)
+    # W = 0 in a template argument is the runtime-W instantiation
+    for src, lib, fn in (("merge_path", sort_lib(), "kbo_merge_path_smem"),
+                         ("clamp_scan", join_lib(), "kbo_clamp_scan_smem")):
+        smem = {w: getattr(lib, fn)(w) for w in (2, 3, 4, 6, 7)}
+        print(f"{src}.cu dynamic shared memory per CTA by W: "
+              f"{json.dumps(smem)} B", flush=True)
 
     # ---- reference values on a small input, through the entry points
     # (reference: src/index.rs:238-240 MS vector, src/lib.rs:594-610 matches)
@@ -364,6 +385,72 @@ def main() -> int:
                 check("clamp_scan", f"edge M={m} bits={bits} reverse={rev}",
                       [clamp_scan(kw, cp, bits, rev)],
                       [clamp_scan_plain(kw, cp, bits, rev)])
+
+    # the tiled merge's and the look-back scan's corners (as in
+    # tests/test_torch_merge_tiles.py and tests/test_torch_cuda.py): tiles
+    # whose A or B part is empty, the last partial tile, one side wholly
+    # before the other, all-equal keys across six tiles; scans of one tile,
+    # a tile and a slot, many tiles; W = 2 and 3 take the runtime-W kernels
+    TILE = 2048
+
+    def sorted_rows(m, w, top, pads=0.02):
+        x = torch.from_numpy(
+            g.integers(0, 9, (w, m)).astype(np.int64) * (top // 8)).to(cuda)
+        x[:, torch.from_numpy(g.random(m) < pads).to(cuda)] = _U32
+        return _radix_sort(to_i32(x))[0]
+
+    def merge_corner(w, case):
+        T = TILE
+        if case == "ragged":
+            return sorted_rows(2 * T + 333, w, _U32), sorted_rows(T + 71, w, _U32)
+        if case == "a_empty":
+            return sorted_rows(0, w, _U32), sorted_rows(2 * T + 5, w, _U32)
+        if case == "b_empty":
+            return sorted_rows(3 * T - 1, w, _U32), sorted_rows(0, w, _U32)
+        if case in ("a_before_b", "b_before_a"):
+            lo = sorted_rows(T + 100, w, 0x7FFFFFFF, 0)
+            hi = sorted_rows(2 * T - 3, w, 0x7FFFFFFF, 0) | (-2**31)
+            return (lo, hi) if case == "a_before_b" else (hi, lo)
+        return (torch.zeros((w, 3 * T + 17), dtype=torch.int32, device=cuda),
+                torch.zeros((w, 3 * T - 250), dtype=torch.int32, device=cuda))
+
+    for w in (2, 4, 6, 7):
+        for case in ("ragged", "a_empty", "b_empty", "a_before_b",
+                     "b_before_a", "all_equal"):
+            a, b = merge_corner(w, case)
+            na, nb = a.shape[1], b.shape[1]
+            ap = torch.arange(na, dtype=torch.int32, device=cuda)
+            bp = torch.arange(na, na + nb, dtype=torch.int32,
+                              device=cuda) | 2**30
+            check("merge_path", f"tile corner W={w} {case} na={na} nb={nb}",
+                  merge_path(a, ap, b, bp), merge_path_plain(a, ap, b, bp))
+
+    def scan_operands(m, w, bits):
+        words = sorted_rows(m, w, _U32 if bits == 2 else 0x3FFFFFFF)
+        per = 16 if bits == 2 else 10
+        cp = torch.from_numpy(np.where(
+            g.random(m) < 0.4, g.integers(0, w * per + 1, m), -1
+        ).astype(np.int32)).to(cuda)
+        return words, cp
+
+    for m in (1, TILE - 1, TILE, TILE + 1, 9 * TILE + 77, 70 * TILE + 5):
+        for bits, w in ((2, 4), (3, 6), (3, 3)):
+            kw, cp = scan_operands(m, w, bits)
+            for rev in (False, True):
+                check("clamp_scan", f"tile corner M={m} W={w} bits={bits} "
+                      f"reverse={rev}", [clamp_scan(kw, cp, bits, rev)],
+                      [clamp_scan_plain(kw, cp, bits, rev)])
+    # a look-back race would show only in some runs: 20 runs, each equal
+    kw, cp = scan_operands((1 << 22) + 1001, 6, 3)
+    want = [clamp_scan_plain(kw, cp, 3, rev) for rev in (False, True)]
+    for run in range(20):
+        rev = run % 2 == 1
+        if not torch.equal(clamp_scan(kw, cp, 3, rev), want[rev]):
+            raise SystemExit(f"FAIL clamp_scan repeat run {run} of 20 "
+                             f"(M={kw.shape[1]}) differs from plain")
+    print(f"kernel clamp_scan: 20 repeat runs at M={kw.shape[1]}, W=6, "
+          f"bits=3, both directions, each bit-equal to plain", flush=True)
+    del kw, cp, want
 
     # bitonic_merge at the find-core and variant-join shapes, payloads and
     # pads included; bitonic_sort at the find-core query-side sort shape,
@@ -718,6 +805,14 @@ def main() -> int:
             ts.append(s0.elapsed_time(s1))
         return statistics.median(ts)
 
+    def run_ms(fn, n=10):
+        """Per-call time in runs of n back-to-back calls: the host's work
+        in the wrapper overlaps the card's, so this is the kernel's own."""
+        def run():
+            for _ in range(n):
+                fn()
+        return dev_ms(run) / n
+
     def host_ms(fn):
         fn()
         torch.cuda.synchronize()
@@ -884,7 +979,7 @@ def main() -> int:
 
     # each kernel alone at the find-core and map shapes, beside its plain
     # version, its byte bound and (where there is one) a library call
-    rows = {}
+    rows, runs = {}, {}
     for label, ((ak, ap, bk, bp), bits) in shapes.items():
         W = ak.shape[0]
         na, nb = ak.shape[1], bk.shape[1]
@@ -907,6 +1002,8 @@ def main() -> int:
         del keys
         sw, sp = merge_path(ak, ap, bk, bp)
         cp = cap_of(sp)
+        runs[label] = (run_ms(lambda: merge_path(ak, ap, bk, bp)),
+                       run_ms(lambda: clamp_scan(sw, cp, bits, False)))
         r["clamp_scan"] = (
             dev_ms(lambda: clamp_scan(sw, cp, bits, False)),
             dev_ms(lambda: clamp_scan_plain(sw, cp, bits, False)),
@@ -974,6 +1071,9 @@ def main() -> int:
           f"{first.k_end} in tiles of {1 << first.log_tile}) alone "
           f"{dev_ms(block_sort):.3f} ms", flush=True)
     del scratch
+    for label, (t_m, t_s) in runs.items():
+        print(f"{tag} {label} in runs of 10 back-to-back calls: merge_path "
+              f"{t_m:.3f} ms, clamp_scan {t_s:.3f} ms per call", flush=True)
     for label, r in rows.items():
         for name, (t_k, t_p, t_b, t_l, shape) in r.items():
             lib = f", torch.sort passes {t_l:.3f} ms" if t_l is not None else ""

@@ -14,12 +14,35 @@
 //
 // Bound on Hopper: bytes. Every input word is read once and every output word
 // written once, 2 * (na + nb) * (W + 1) * 4 bytes; there is no arithmetic to
-// speak of. Design: launch 1 finds, for each 2048-output tile, the merge-path
-// diagonal by binary search on global memory (A wins ties: the smallest a with
-// B[t-a-1] <lex A[a]). Launch 2 gives each thread 8 consecutive outputs: it
-// binary-searches its own diagonal inside its tile's A and B ranges (a few KB,
-// served from L1/L2) and merges its 8 items serially. Staging the tile's
-// slabs in shared memory and coalescing the writes is later work.
+// speak of. What keeps a merge from that bound is the access pattern: a
+// thread that merges its own run of outputs straight from global memory
+// reads and writes 32 scattered addresses per warp instruction in each of
+// the W + 1 rows, and its diagonal search probes global memory.
+//
+// Design (two launches):
+// 1. partition_kernel finds, for each 2048-output tile, the merge-path
+//    diagonal by binary search on global memory (A wins ties: the smallest a
+//    with B[t-a-1] <lex A[a]). One wide launch; a CTA of the merge would
+//    otherwise start with ~23 dependent global probes.
+// 2. merge_kernel, one CTA of 256 threads per tile:
+//    a. copies the tile's A run and B run of every row into one shared slab
+//       per row (A part, then B part) with cp.async, neighbouring threads on
+//       neighbouring words: every global load is coalesced, and all of a
+//       thread's copies are in flight at once (plain loads staged through
+//       registers kept only a few in flight and were slower at every shape
+//       measured);
+//    b. each thread searches its own diagonal inside the slabs (log2 2048
+//       probes, same predicate) and merges its 8 outputs serially from shared
+//       memory, recording only each output's source index into the slab;
+//    c. after one barrier, writes the tile row by row: thread j writes
+//       outputs j, j + 256, ..., so every global store is coalesced and each
+//       output word is written once.
+// Dynamic shared memory: 2048 * (W + 1) * 4 B of slabs plus 2048 * 2 B of
+// source indices (60 KB at W = 6: three CTAs per SM). The kernel is
+// templated on W for the main path's W = 4, 6, 7 (unrolled row loops); one
+// instantiation takes any other W up to kMaxW. Measured on an H100
+// (PERF.md): about 60% of the byte bound at the find-core and map shapes;
+// tiles of 1024 or 4096 outputs, or 128 threads, were no faster.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -28,9 +51,28 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kItems = 8;
-constexpr long long kTile = kThreads * kItems;
+constexpr int kTile = kThreads * kItems;
+constexpr int kMaxW = 26;  // (W + 1) rows of slabs fit in 227 KB
 
-// B[j] <lex A[i] over the w key rows, compared as uint32
+constexpr size_t smem_bytes(int w) {
+  return (size_t)kTile * (w + 1) * sizeof(uint32_t) +
+         (size_t)kTile * sizeof(uint16_t);
+}
+
+// 4-byte copy from global to shared memory that holds no register while in
+// flight (cp.async), so a thread keeps all of its tile loads in flight
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// B[j] <lex A[i] over the w key rows, compared as uint32 (global memory)
 __device__ __forceinline__ bool b_lt_a(const uint32_t* a, long long na,
                                        long long i, const uint32_t* b,
                                        long long nb, long long j, int w) {
@@ -67,43 +109,117 @@ __global__ void partition_kernel(const uint32_t* a, long long na,
   a_off[i] = diagonal(a, na, b, nb, w, t, max(0LL, t - nb), min(t, na));
 }
 
+// slab element y <lex slab element x over the key rows (shared memory; rows
+// kTile words apart)
+template <int WT>
+__device__ __forceinline__ bool slab_lt(const uint32_t* slab, int y, int x,
+                                        int w_rt) {
+  const int w = WT > 0 ? WT : w_rt;
+#pragma unroll
+  for (int c = 0; c < w; ++c) {
+    const uint32_t xv = slab[c * kTile + x];
+    const uint32_t yv = slab[c * kTile + y];
+    if (yv != xv) return yv < xv;
+  }
+  return false;
+}
+
+// WT > 0: W fixed at compile time; WT == 0: W = w_rt (any W up to kMaxW)
+template <int WT>
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(const uint32_t* a_keys, const uint32_t* a_pay, long long na,
              const uint32_t* b_keys, const uint32_t* b_pay, long long nb,
-             int w, const long long* a_off, uint32_t* out_keys,
+             int w_rt, const long long* a_off, uint32_t* out_keys,
              uint32_t* out_pay) {
+  extern __shared__ uint32_t slab[];  // [W + 1][kTile], then uint16 src
+  const int w = WT > 0 ? WT : w_rt;
+  uint16_t* src = reinterpret_cast<uint16_t*>(slab + (w + 1) * kTile);
   const long long total = na + nb;
   const long long t0 = (long long)blockIdx.x * kTile;
-  const long long t = t0 + (long long)threadIdx.x * kItems;
-  if (t >= total) return;
-  const long long t1 = min(t0 + kTile, total);
+  const int n = (int)min((long long)kTile, total - t0);
   const long long a_lo = a_off[blockIdx.x];
-  const long long a_hi = a_off[blockIdx.x + 1];
   const long long b_lo = t0 - a_lo;
-  const long long b_hi = t1 - a_hi;
-  long long ai = diagonal(a_keys, na, b_keys, nb, w, t, max(a_lo, t - b_hi),
-                          min(a_hi, t - b_lo));
-  long long bi = t - ai;
-  const long long end = min(t + kItems, total);
-  for (long long o = t; o < end; ++o) {
-    const bool take_a =
-        bi >= nb || (ai < na && !b_lt_a(a_keys, na, ai, b_keys, nb, bi, w));
-    if (take_a) {
-      for (int c = 0; c < w; ++c) out_keys[c * total + o] = a_keys[c * na + ai];
-      out_pay[o] = a_pay[ai];
-      ++ai;
-    } else {
-      for (int c = 0; c < w; ++c) out_keys[c * total + o] = b_keys[c * nb + bi];
-      out_pay[o] = b_pay[bi];
-      ++bi;
+  const int n_a = (int)(a_off[blockIdx.x + 1] - a_lo);  // n - n_a from B
+
+  // a. the tile's A run then B run of every row, coalesced
+#pragma unroll
+  for (int c = 0; c <= w; ++c) {
+    const uint32_t* ar = c < w ? a_keys + c * na : a_pay;
+    const uint32_t* br = c < w ? b_keys + c * nb : b_pay;
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) {
+      const int p = r * kThreads + threadIdx.x;
+      if (p < n) {
+        cp_async4(slab + c * kTile + p,
+                  p < n_a ? ar + a_lo + p : br + b_lo + p - n_a);
+      }
     }
   }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // b. this thread's diagonal inside the slabs, then its outputs' sources
+  const int n_b = n - n_a;
+  const int d = min((int)threadIdx.x * kItems, n);
+  int lo = max(0, d - n_b), hi = min(d, n_a);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (slab_lt<WT>(slab, n_a + d - mid - 1, mid, w)) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  int ai = lo, bi = d - lo;
+  const int end = min(d + kItems, n);
+  for (int o = d; o < end; ++o) {
+    const bool take_a =
+        bi >= n_b || (ai < n_a && !slab_lt<WT>(slab, n_a + bi, ai, w));
+    src[o] = (uint16_t)(take_a ? ai++ : n_a + bi++);
+  }
+  __syncthreads();
+
+  // c. row by row, one output word per thread per store, coalesced
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int o = r * kThreads + threadIdx.x;
+    if (o < n) {
+      const int s = src[o];
+#pragma unroll
+      for (int c = 0; c < w; ++c) {
+        out_keys[c * total + t0 + o] = slab[c * kTile + s];
+      }
+      out_pay[t0 + o] = slab[w * kTile + s];
+    }
+  }
+}
+
+template <int WT>
+cudaError_t launch_merge(const uint32_t* ak, const uint32_t* ap, long long na,
+                         const uint32_t* bk, const uint32_t* bp, long long nb,
+                         int w, const long long* a_off, uint32_t* ok,
+                         uint32_t* op, long long n_tiles, cudaStream_t s) {
+  const size_t smem = smem_bytes(w);
+  cudaError_t err = cudaFuncSetAttribute(
+      merge_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  merge_kernel<WT><<<(unsigned)n_tiles, kThreads, smem, s>>>(
+      ak, ap, na, bk, bp, nb, w, a_off, ok, op);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" long long kbo_merge_path_tiles(long long na, long long nb) {
   return (na + nb + kTile - 1) / kTile;
+}
+
+extern "C" int kbo_merge_path_max_w() { return kMaxW; }
+
+// dynamic shared memory one merge CTA asks for at w key rows
+extern "C" long long kbo_merge_path_smem(int w) {
+  return (long long)smem_bytes(w);
 }
 
 // a_off: scratch of kbo_merge_path_tiles(na, nb) + 1 int64. Returns the CUDA
@@ -113,19 +229,36 @@ extern "C" int kbo_merge_path(const int32_t* a_keys, const int32_t* a_pay,
                               const int32_t* b_pay, long long nb, int w,
                               long long* a_off, int32_t* out_keys,
                               int32_t* out_pay, void* stream) {
+  if (w < 0 || w > kMaxW) return (int)cudaErrorInvalidValue;
   const long long n_tiles = kbo_merge_path_tiles(na, nb);
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ak = reinterpret_cast<const uint32_t*>(a_keys);
   const auto* bk = reinterpret_cast<const uint32_t*>(b_keys);
+  const auto* ap = reinterpret_cast<const uint32_t*>(a_pay);
+  const auto* bp = reinterpret_cast<const uint32_t*>(b_pay);
+  auto* ok = reinterpret_cast<uint32_t*>(out_keys);
+  auto* op = reinterpret_cast<uint32_t*>(out_pay);
   partition_kernel<<<(unsigned)((n_tiles + 1 + 255) / 256), 256, 0, s>>>(
       ak, na, bk, nb, w, n_tiles, a_off);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<(unsigned)n_tiles, kThreads, 0, s>>>(
-      ak, reinterpret_cast<const uint32_t*>(a_pay), na, bk,
-      reinterpret_cast<const uint32_t*>(b_pay), nb, w, a_off,
-      reinterpret_cast<uint32_t*>(out_keys),
-      reinterpret_cast<uint32_t*>(out_pay));
-  return (int)cudaGetLastError();
+  switch (w) {
+    case 4:
+      err = launch_merge<4>(ak, ap, na, bk, bp, nb, w, a_off, ok, op,
+                            n_tiles, s);
+      break;
+    case 6:
+      err = launch_merge<6>(ak, ap, na, bk, bp, nb, w, a_off, ok, op,
+                            n_tiles, s);
+      break;
+    case 7:
+      err = launch_merge<7>(ak, ap, na, bk, bp, nb, w, a_off, ok, op,
+                            n_tiles, s);
+      break;
+    default:
+      err = launch_merge<0>(ak, ap, na, bk, bp, nb, w, a_off, ok, op,
+                            n_tiles, s);
+  }
+  return (int)err;
 }

@@ -98,13 +98,16 @@ def clamp_scan_plain(words, cap, bits: int, reverse: bool):
 @functools.cache
 def _lib():
     lib = _build.load("clamp_scan")
-    lib.kbo_clamp_scan_blocks.argtypes = [ctypes.c_longlong]
-    lib.kbo_clamp_scan_blocks.restype = ctypes.c_longlong
+    n = ctypes.c_longlong
+    lib.kbo_clamp_scan_tiles.argtypes = [n]
+    lib.kbo_clamp_scan_tiles.restype = n
+    lib.kbo_clamp_scan_max_w.restype = ctypes.c_int
+    lib.kbo_clamp_scan_smem.argtypes = [ctypes.c_int]
+    lib.kbo_clamp_scan_smem.restype = n
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.kbo_clamp_scan.argtypes = [
-        p, p, ctypes.c_longlong, i, i, i, p, p, p, p
-    ]
+    lib.kbo_clamp_scan.argtypes = [p, p, n, i, i, i, p, p, p]
     lib.kbo_clamp_scan.restype = ctypes.c_int
+    lib.max_w = lib.kbo_clamp_scan_max_w()
     return lib
 
 
@@ -115,7 +118,9 @@ def clamp_scan(words: torch.Tensor, cap: torch.Tensor, bits: int,
 
     words: int32 ``[W, M]`` colex-sorted key words (uint32 bit patterns);
     cap: int32 ``[M]``, -1 at non-source slots; bits 2 or 3. CUDA tensors
-    launch ``csrc/clamp_scan.cu``; CPU tensors take :func:`clamp_scan_plain`.
+    launch ``csrc/clamp_scan.cu`` (one pass per direction with decoupled
+    look-back; at most 26 key rows, staged in one CTA's shared memory); CPU
+    tensors take :func:`clamp_scan_plain`.
     """
     if bits not in (2, 3):
         raise ValueError("bits must be 2 or 3")
@@ -132,14 +137,20 @@ def clamp_scan(words: torch.Tensor, cap: torch.Tensor, bits: int,
         raise ValueError("clamp_scan operands must be contiguous")
     W, M = words.shape
     lib = _lib()
-    nblk = lib.kbo_clamp_scan_blocks(M)
-    tot = torch.empty(2 * nblk, dtype=torch.int32, device=device)
-    carry = torch.empty(2 * nblk, dtype=torch.int32, device=device)
+    if W > lib.max_w:
+        raise ValueError(
+            f"clamp_scan takes at most {lib.max_w} key rows on the card, "
+            f"got {W}"
+        )
+    # the tiles' look-back status words, then the tile ticket
+    scratch = torch.empty(
+        lib.kbo_clamp_scan_tiles(M) + 1, dtype=torch.int64, device=device
+    )
     out = torch.empty(M, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         err = lib.kbo_clamp_scan(
             words.data_ptr(), cap.data_ptr(), M, W, bits, int(reverse),
-            tot.data_ptr(), carry.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "clamp_scan")

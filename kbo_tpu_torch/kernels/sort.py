@@ -81,13 +81,17 @@ def merge_path_plain(a_keys, a_pay, b_keys, b_pay):
 @functools.cache
 def _lib():
     lib = _build.load("merge_path")
-    lib.kbo_merge_path_tiles.argtypes = [ctypes.c_longlong] * 2
-    lib.kbo_merge_path_tiles.restype = ctypes.c_longlong
     p, n = ctypes.c_void_p, ctypes.c_longlong
+    lib.kbo_merge_path_tiles.argtypes = [n, n]
+    lib.kbo_merge_path_tiles.restype = n
+    lib.kbo_merge_path_max_w.restype = ctypes.c_int
+    lib.kbo_merge_path_smem.argtypes = [ctypes.c_int]
+    lib.kbo_merge_path_smem.restype = n
     lib.kbo_merge_path.argtypes = [
         p, p, n, p, p, n, ctypes.c_int, p, p, p, p
     ]
     lib.kbo_merge_path.restype = ctypes.c_int
+    lib.max_w = lib.kbo_merge_path_max_w()
     return lib
 
 
@@ -107,9 +111,10 @@ def merge_path(a_keys, a_pay, b_keys, b_pay):
 
     a_keys/b_keys: int32 ``[W, n]`` key words sorted lexicographically;
     a_pay/b_pay: int32 ``[n]`` payloads. Returns (keys ``[W, na+nb]``,
-    payload ``[na+nb]``). CUDA tensors launch ``csrc/merge_path.cu``; CPU
-    tensors take :func:`merge_path_plain`. Unlike kbo_tpu's operand-list
-    form, the output carries no tile pads.
+    payload ``[na+nb]``). CUDA tensors launch ``csrc/merge_path.cu`` (at
+    most 26 key rows: the rows of a tile share one CTA's shared memory);
+    CPU tensors take :func:`merge_path_plain`. Unlike kbo_tpu's
+    operand-list form, the output carries no tile pads.
     """
     device = a_keys.device
     if device.type == "cpu":
@@ -119,6 +124,11 @@ def merge_path(a_keys, a_pay, b_keys, b_pay):
     _check_operands(b_keys, b_pay, W, device)
     na, nb = a_keys.shape[1], b_keys.shape[1]
     lib = _lib()
+    if W > lib.max_w:
+        raise ValueError(
+            f"merge_path takes at most {lib.max_w} key rows on the card, "
+            f"got {W}"
+        )
     out_keys = torch.empty((W, na + nb), dtype=torch.int32, device=device)
     out_pay = torch.empty(na + nb, dtype=torch.int32, device=device)
     a_off = torch.empty(

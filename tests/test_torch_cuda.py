@@ -77,6 +77,102 @@ def test_clamp_scan_kernel(cuda, bits, reverse):
     assert torch.equal(got, want)
 
 
+# the merge and scan kernels' tile (kTile in csrc/merge_path.cu and
+# csrc/clamp_scan.cu)
+TILE = 2048
+
+
+def _merge_corner(rng, W, case, device):
+    """Sorted operands for one corner of the tiled merge (the cases of
+    tests/test_torch_merge_tiles.py, on the card)."""
+    T = TILE
+    if case == "ragged":
+        return (_sorted_words(rng, W, 2 * T + 333, 0xFFFFFFFF, device),
+                _sorted_words(rng, W, T + 71, 0xFFFFFFFF, device))
+    if case == "a_empty":
+        return (_sorted_words(rng, W, 0, 0xFFFFFFFF, device),
+                _sorted_words(rng, W, 2 * T + 5, 0xFFFFFFFF, device))
+    if case == "b_empty":
+        return (_sorted_words(rng, W, 3 * T - 1, 0xFFFFFFFF, device),
+                _sorted_words(rng, W, 0, 0xFFFFFFFF, device))
+    if case in ("a_before_b", "b_before_a"):
+        lo = _sorted_words(rng, W, T + 100, 0x7FFFFFFF, device)
+        hi = _sorted_words(rng, W, 2 * T - 3, 0x7FFFFFFF, device) | (-2**31)
+        return (lo, hi) if case == "a_before_b" else (hi, lo)
+    # all-equal keys across six tiles: stability decides every output
+    return (torch.zeros((W, 3 * T + 17), dtype=torch.int32, device=device),
+            torch.zeros((W, 3 * T - 250), dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("W", [2, 4, 6, 7])
+@pytest.mark.parametrize("case", ["ragged", "a_empty", "b_empty",
+                                  "a_before_b", "b_before_a", "all_equal"])
+def test_merge_path_tile_corners(cuda, W, case):
+    """Tiles whose A or B part is empty, the last partial tile, one side
+    wholly before the other, all-equal keys across six tiles; W = 2 takes
+    the runtime-W instantiation."""
+    rng = np.random.default_rng(W * 10 + len(case))
+    a, b = _merge_corner(rng, W, case, cuda)
+    na, nb = a.shape[1], b.shape[1]
+    ap = torch.arange(na, dtype=torch.int32, device=cuda)
+    bp = torch.arange(na, na + nb, dtype=torch.int32, device=cuda) | 2**30
+    before = merge_path.launches
+    got = merge_path(a, ap, b, bp)
+    torch.cuda.synchronize()
+    assert merge_path.launches == before + 1
+    want = merge_path_plain(a, ap, b, bp)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _scan_operands(rng, W, M, bits, device):
+    top = 0xFFFFFFFF if bits == 2 else 0x3FFFFFFF
+    words = _sorted_words(rng, W, M, top, device, pad_share=0.02)
+    per = 16 if bits == 2 else 10
+    cap = torch.from_numpy(np.where(
+        rng.random(M) < 0.4, rng.integers(0, W * per + 1, M), -1
+    ).astype(np.int32)).to(device)
+    return words, cap
+
+
+@pytest.mark.parametrize("M", [1, TILE - 1, TILE, TILE + 1, 9 * TILE + 77,
+                               70 * TILE + 5])
+@pytest.mark.parametrize("bits,W", [(2, 4), (3, 6), (3, 3)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_clamp_scan_tile_corners(cuda, M, bits, W, reverse):
+    """One tile, a tile and one slot, many tiles (the look-back walks
+    several windows of 32); W = 3 takes the runtime-W instantiation."""
+    rng = np.random.default_rng(M + bits * 7 + W + reverse)
+    words, cap = _scan_operands(rng, W, M, bits, cuda)
+    before = clamp_scan.launches
+    got = clamp_scan(words, cap, bits, reverse)
+    torch.cuda.synchronize()
+    assert clamp_scan.launches == before + 1
+    assert torch.equal(got, clamp_scan_plain(words, cap, bits, reverse))
+
+
+def test_clamp_scan_repeat(cuda):
+    """20 runs at 2^22 + 1001 slots, each bit-equal: a look-back race
+    would show only in some runs."""
+    rng = np.random.default_rng(22)
+    M = (1 << 22) + 1001
+    words, cap = _scan_operands(rng, 6, M, 3, cuda)
+    want = [clamp_scan_plain(words, cap, 3, rev) for rev in (False, True)]
+    for run in range(20):
+        got = clamp_scan(words, cap, 3, run % 2 == 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[run % 2]), f"run {run}"
+
+
+def test_merge_scan_reject_wide_keys(cuda):
+    """More key rows than the shared-memory slabs hold raise."""
+    keys = torch.zeros((27, 10), dtype=torch.int32, device=cuda)
+    pay = torch.zeros(10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="key rows"):
+        merge_path(keys, pay, keys, pay)
+    with pytest.raises(ValueError, match="key rows"):
+        clamp_scan(keys, pay, 2, False)
+
+
 def test_find_batch_on_card_equals_cpu(cuda):
     rng = np.random.default_rng(5)
     genome = BASES[rng.integers(0, 4, 20_000)].tobytes()
