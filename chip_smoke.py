@@ -9,7 +9,8 @@ Phases, each printed as it passes; any failure exits non-zero:
    name and power limit as nvidia-smi reports them;
 2. build: compiles the CUDA kernels from kbo_tpu_torch/kernels/csrc into
    kbo_tpu_torch/_build (or loads them from there), prints each kernel's
-   registers and spills as ptxas reported them and the dynamic shared
+   registers and spills as ptxas reported them (bitonic.cu's up to 17
+   operand rows, derand_translate.cu's two forms) and the dynamic shared
    memory per CTA of merge_path.cu and clamp_scan.cu by W;
    then the reference's golden MS vector and matches doctest on the card;
 3. kernels: merge_path, clamp_scan (bits 2 and 3, both directions),
@@ -21,12 +22,16 @@ Phases, each printed as it passes; any failure exits non-zero:
    before the other, all-equal keys over six tiles, scans of 1 to 70
    tiles, W = 2 and 3 through the runtime-W kernels, and 20 repeat scans
    at 4.2 M slots; bitonic_merge and bitonic_sort also at M = 2^16..2^18
-   with 3, 5, 7 and 9 operand rows: na = 0, nb = 0, na + nb = M), each
-   bitonic call's passes over device memory and its tile blocks' shared
-   memory; bitonic_sort
-   also against the radix sort; the joins with merge="bitonic" against
-   merge="path" (ms2_core at find-core length, ms3_rows_core at the map
-   shape), launch counts read around each;
+   with 3, 5, 7 and 9 operand rows: na = 0, nb = 0, na + nb = M, and at
+   17 rows, the 2-bit join at k = 254; derandomize_translate also in
+   both of its forms over rows of 70 tiles, 8 rows of 500 kbase, rows of
+   one tile and of several, unaligned strided rows, with an int true
+   length, and in 20 back-to-back calls at 4.7 M positions), each bitonic
+   call's passes over device memory and its tile blocks' shared memory;
+   bitonic_sort also against the radix sort; the joins with
+   merge="bitonic" against merge="path" (ms2_core at find-core length and
+   at k = 254 on a slice of the genome, ms3_rows_core at the map shape),
+   launch counts read around each;
 4. the find slice at full size on bench.py's workload (a 4.6 Mbase genome
    from default_rng(42) with a SNP per kb and sparse 3-base deletions,
    k=51): find-core (ms2_core -> derandomize_translate over the streamed
@@ -45,11 +50,13 @@ Phases, each printed as it passes; any failure exits non-zero:
    run byte for byte;
 6. times on the card (CUDA events or the host clock, medians of 7; by
    stage, the refinement's stages and the per-index extension table
-   included; merge_path and clamp_scan also per call in runs of 10
-   back-to-back calls), each with the card's name and power limit, then one
-   torch.profiler run of each workload (and of one bitonic merge and one
-   bitonic sort, by pass kind): device busy share and the kernels that take
-   the time.
+   included; merge_path, clamp_scan and derandomize_translate also per call
+   in runs of 10 back-to-back calls; derandomize_translate's two forms by
+   device time at 1 to 32 tiles a row), each with the card's name
+   and power limit, then one torch.profiler run of each workload (and of
+   one bitonic merge and one bitonic sort, by pass kind): device busy share
+   and the kernels that take the time; and one of a derandomize_translate
+   call at each shape: its kernels, memsets and host-to-device copies.
 
 Prints the per-kernel JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -90,7 +97,8 @@ def _ptxas_summary(report: str):
         mangled = block.split("'", 1)[0]
         name = mangled
         for kname in ("regs_pass", "tile_pass", "merge_kernel",
-                      "partition_kernel", "scan_kernel"):
+                      "partition_kernel", "scan_kernel", "lookback_kernel",
+                      "short_rows_kernel"):
             if kname in mangled:
                 args = re.match(r"I((?:Li-?\d+E)+)E",
                                 mangled.split(kname, 1)[1])
@@ -144,6 +152,7 @@ def main() -> int:
         pack_windows_3bit,
         query_ms_values_device,
     )
+    from kbo_tpu_torch.kernels import postprocess as post_mod
     from kbo_tpu_torch.kernels.postprocess import (
         _lib as post_lib,
         derandomize_core,
@@ -203,7 +212,7 @@ def main() -> int:
     print(f"build: merge_path, clamp_scan, derand_translate, bitonic "
           f"compiled/loaded in {time.perf_counter() - t0:.1f}s (nvcc "
           f"{secs:.1f}s)", flush=True)
-    for src in ("merge_path", "clamp_scan", "bitonic"):
+    for src in ("merge_path", "clamp_scan", "bitonic", "derand_translate"):
         for name, regs, stack, st, ld in _ptxas_summary(
                 _build.resource_report(src)):
             print(f"ptxas {src}.cu {name}: {regs} registers, {stack} B stack "
@@ -518,6 +527,31 @@ def main() -> int:
             check("bitonic_sort", f"corner n={M - 5} rows={n_ops} "
                   f"({passes_of(M, n_ops, True)})",
                   [bitonic_sort(s_in, W)], [bitonic_sort_plain(s_in, W)])
+    # 17 operand rows, the most a caller passes: the 2-bit join at k = 254
+    # (16 key words and the payload), alone and through ms2_core against
+    # merge="path" on a slice of the genome
+    a, b = ops_of(*rand_sorted(300_000, 16)), ops_of(*rand_sorted(200_001, 16))
+    check("bitonic_merge", f"17 rows na=300000 nb=200001 "
+          f"({passes_of(1 << 19, 17, False)})",
+          [bitonic_merge(a, b, 16)], [bitonic_merge_plain(a, b, 16)])
+    del a, b
+    K254, n254 = 254, min(n, 400_000)
+    dev254 = device_index(api.build([query[:n254]], BuildOpts(k=K254)), cuda)
+    buf254, _ = make_flat_buffer(encode_ascii(ref[:n254]), K254)
+    buf254 = torch.from_numpy(buf254).to(cuda)
+    before = bitonic_merge.launches
+    ms254 = ms2_core(dev254.keys2, dev254.cap2, buf254, K254, merge="bitonic")
+    torch.cuda.synchronize()
+    if bitonic_merge.launches != before + 1 or not torch.equal(
+            ms254, ms2_core(dev254.keys2, dev254.cap2, buf254, K254)):
+        raise SystemExit("FAIL ms2_core k=254 merge=bitonic differs from "
+                         "merge=path")
+    M254 = _bitonic_len(dev254.keys2.shape[1] + buf254.shape[0])
+    print(f"merge=bitonic at k=254: ms2_core over {buf254.shape[0]} slots "
+          f"({dev254.keys2.shape[0] + 1} operand rows, "
+          f"{passes_of(M254, dev254.keys2.shape[0] + 1, False)}) equals "
+          f"merge=path (max MS {int(ms254.max())})", flush=True)
+    del dev254, buf254, ms254
 
     # derandomize_translate: equal to the plain version below each row's
     # true length, 0 at and past it
@@ -534,6 +568,7 @@ def main() -> int:
         zero = torch.zeros_like(g2)
         check("derandomize_translate", what, [torch.where(in_len, g2, zero)],
               [torch.where(in_len, w2, zero)])
+        return got
 
     ms_batch = compute_ms_values_many_device(
         index, [encode_ascii(q) for q in q_list], cuda
@@ -543,7 +578,7 @@ def main() -> int:
              ms_batch, batch_tl)
     ms_row = mapsweep.ms3_rows_sweep(dev.keys3, dev.rows_packed, mcodes, K)[0]
     map_tl = torch.tensor([n], dtype=torch.int32, device=cuda)
-    check_dt(f"real MS row 1x{Lm} true_len={n}", ms_row, map_tl)
+    map_chars = check_dt(f"real MS row 1x{Lm} true_len={n}", ms_row, map_tl)
     for lip in (True, False):
         Qs, Ls = 64, 1024 * 9 + 301
         if lip:
@@ -562,6 +597,63 @@ def main() -> int:
     check_dt("edge 512x300 scalar true_len",
              torch.from_numpy(g.integers(0, K + 1, (512, 300)).astype(np.int32))
              .to(cuda), 300)
+    # the one-launch kernel's corners (as in tests/test_torch_derand_tiles.py
+    # and tests/test_torch_cuda.py), each in both forms (forced in turn):
+    # 70 tiles a row (look-backs over several windows of 32), Q > 1 long
+    # rows, rows of one tile and of several; true lengths 0, 1, 2, on a
+    # tile edge, mid-tile, L - 1 and L; the same rows as unaligned strided
+    # views (find_batch's layout)
+    DT_TILE = post_lib().kbo_derand_translate_tile()
+    own_choice = post_mod._short_rows
+
+    def lipschitz_rows(qs, ls):
+        steps = g.choice(np.array([1, 1, 1, 0, -5, -40]), (qs, ls))
+        return torch.from_numpy(np.clip(np.cumsum(steps, axis=1) % (K + 9),
+                                        0, K).astype(np.int32)).to(cuda)
+
+    def forced(short):
+        """Run derandomize_translate in one form (None: its own choice)."""
+        post_mod._short_rows = own_choice if short is None else \
+            (lambda *a: short)
+
+    try:
+        for qs, ls in ((1, 70 * DT_TILE + 5), (3, 70 * DT_TILE + 5),
+                       (8, 500_000), (64, DT_TILE), (512, 3 * DT_TILE + 77)):
+            syn = lipschitz_rows(qs, ls)
+            tls = g.integers(0, ls + 1, qs)
+            tls[: min(qs, 8)] = np.minimum(
+                [ls, 0, 1, 2, DT_TILE, 2 * DT_TILE, DT_TILE + 777, ls - 1],
+                ls)[: min(qs, 8)]
+            tls = torch.from_numpy(tls.astype(np.int32)).to(cuda)
+            wide = torch.zeros((qs, ls + K - 1), dtype=torch.int32,
+                               device=cuda)
+            wide[:, K - 1:] = syn
+            for short, form in ((True, "short-row"), (False, "look-back")):
+                forced(short)
+                check_dt(f"corner {qs}x{ls} ({form} form)", syn, tls)
+                check_dt(f"corner {qs}x{ls} ({form} form), rows at offset "
+                         f"{K - 1} of a {ls + K - 1} stride", wide[:, K - 1:],
+                         tls)
+    finally:
+        forced(None)
+    del syn, wide
+    # a look-back race would show only in some runs: 20 back-to-back calls
+    # on the map's real MS row, the true length as a tensor and as an int
+    before = derandomize_translate.launches
+    reps = [derandomize_translate(ms_row, K, threshold,
+                                  map_tl if run % 2 == 0 else n)
+            for run in range(20)]
+    torch.cuda.synchronize()
+    if derandomize_translate.launches != before + 20:
+        raise SystemExit("FAIL derandomize_translate: not one launch a call")
+    for run, got in enumerate(reps):
+        if not torch.equal(got, map_chars):
+            raise SystemExit(f"FAIL derandomize_translate repeat run {run} "
+                             f"of 20 (L={Lm}) differs")
+    print(f"kernel derandomize_translate: 20 repeat calls at L={Lm}, "
+          f"true_len {n} as a tensor and as an int, each bit-equal to the "
+          f"checked call, one launch each", flush=True)
+    del map_chars, reps
 
     counters = {"merge_path": merge_path, "clamp_scan": clamp_scan,
                 "derandomize_translate": derandomize_translate,
@@ -791,6 +883,9 @@ def main() -> int:
           f"of {len(contigs[0])} bases equal the CPU run", flush=True)
 
     # ---- 6. times on the card
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     def dev_ms(fn):
         fn()
         torch.cuda.synchronize()
@@ -1055,6 +1150,46 @@ def main() -> int:
             None,
             f"Q={q_rows}, L={width}",
         )
+    dt_runs = {label: run_ms(lambda: derandomize_translate(
+        ms_in, K, threshold, tl_in)) for label, ms_in, tl_in in (
+            ("find-core", ms_gpu, T), ("batch", ms_batch, batch_tl),
+            ("map", single[0], map_tl))}
+    # the two forms of derandomize_translate on the same Lipschitz rows,
+    # forced in turn: device time of the kernel and the memset per call
+    # (profiler), beside the form the wrapper picks (_short_rows)
+    def device_ms(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        ) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / n / 1e3
+
+    try:
+        for qs, ls in ((512, 4096), (512, 8192), (512, 16384), (512, 32768),
+                       (64, 4096), (64, 8192), (64, 16384), (64, 32768),
+                       (8, 16384), (8, 131072)):
+            syn = lipschitz_rows(qs, ls)
+            t_form = {}
+            for short, form in ((True, "short-row"), (False, "look-back")):
+                forced(short)
+                t_form[form] = device_ms(
+                    lambda: derandomize_translate(syn, K, threshold, ls))
+            forced(None)
+            pick = "short-row" if own_choice(
+                qs, -(-ls // DT_TILE), cuda.index or 0) else "look-back"
+            print(f"{tag} derandomize_translate forms at Q={qs}, L={ls} "
+                  f"({-(-ls // DT_TILE)} tiles a row), device time a call: "
+                  f"short-row {t_form['short-row']:.4f} ms, look-back "
+                  f"{t_form['look-back']:.4f} ms (kernel + memset); the "
+                  f"wrapper picks {pick}", flush=True)
+    finally:
+        forced(None)
+    del syn
     # the sort's first pass alone: phases 1..log2(tile) in one tile pass,
     # reading the operands and the pads straight from sort_in
     first = _bitonic_passes(sort_M, 5, True)[0]
@@ -1072,8 +1207,11 @@ def main() -> int:
           f"{dev_ms(block_sort):.3f} ms", flush=True)
     del scratch
     for label, (t_m, t_s) in runs.items():
+        dt = f", derandomize_translate {dt_runs[label]:.3f} ms" \
+            if label in dt_runs else ""
         print(f"{tag} {label} in runs of 10 back-to-back calls: merge_path "
-              f"{t_m:.3f} ms, clamp_scan {t_s:.3f} ms per call", flush=True)
+              f"{t_m:.3f} ms, clamp_scan {t_s:.3f} ms{dt} per call",
+              flush=True)
     for label, r in rows.items():
         for name, (t_k, t_p, t_b, t_l, shape) in r.items():
             lib = f", torch.sort passes {t_l:.3f} ms" if t_l is not None else ""
@@ -1084,8 +1222,6 @@ def main() -> int:
                   flush=True)
 
     # ---- where the device time goes: one profiled run of each workload
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def breakdown(label, fn):
         fn()
@@ -1116,6 +1252,36 @@ def main() -> int:
     breakdown("bitonic_merge find-core",
               lambda: bitonic_merge(*bitonic_in["find-core"]))
     breakdown("bitonic_sort query sort", lambda: bitonic_sort(sort_in, 4))
+
+    # one derandomize_translate call at each shape: one kernel, at most one
+    # memset (the look-back form's status words), no host-to-device copy
+    # (find-core passes its true length as an int)
+    for label, ms_in, tl_in in (("find-core", ms_gpu, T),
+                                ("batch", ms_batch, batch_tl),
+                                ("map", single[0], map_tl)):
+        derandomize_translate(ms_in, K, threshold, tl_in)
+        torch.cuda.synchronize()
+        with profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        ) as prof:
+            derandomize_translate(ms_in, K, threshold, tl_in)
+            torch.cuda.synchronize()
+        dev_ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        ev = {e.key: e.count for e in dev_ev}
+        n_memset = sum(c for key, c in ev.items() if key.startswith("Memset"))
+        n_h2d = sum(c for key, c in ev.items() if "HtoD" in key)
+        n_kern = sum(c for key, c in ev.items()
+                     if not key.startswith(("Memset", "Memcpy")))
+        dev_us = {e.key[:40]: round(e.self_device_time_total / e.count, 3)
+                  for e in dev_ev}
+        print(f"{tag} profile derandomize_translate {label}: {n_kern} "
+              f"kernel, {n_memset} memset, {n_h2d} host-to-device copies "
+              f"per call; device us per event {json.dumps(dev_us)}",
+              flush=True)
+        if n_kern != 1 or n_memset > 1 or n_h2d:
+            raise SystemExit(f"FAIL derandomize_translate {label}: not one "
+                             "launch a call")
 
     src = "kbo_tpu_torch/kernels/csrc/"
     main = "map_ MapOpts() format=True"

@@ -4,7 +4,7 @@
 // (_cross_stage_kernel + _block_stages_kernel via _asc_stage) and
 // ::bitonic_sort (_block_sort_kernel, _block_merge_kernel,
 // _cross_stage_dir_kernel). The operands are n_ops rows of M uint32 words
-// (int32 tensors in PyTorch), M a power of two, n_ops <= 16; the first
+// (int32 tensors in PyTorch), M a power of two, n_ops <= 17; the first
 // n_comps rows are compared lexicographically, the rest ride along as
 // payloads. The network runs on kbo_tpu's layout: element i is A[i] for
 // i < na, B[M-1-i] for i >= M - nb and all-ones otherwise (the merge:
@@ -31,15 +31,16 @@
 //   of them is bit k of b, so each thread has one direction. Consecutive
 //   threads take consecutive b, so every row loads and stores coalesced.
 //   The 2^r x n_ops words stay in registers (r = 4 up to 5 rows, 3 up to
-//   10, 2 up to 16: at most 80 words); only the elements that took part in
+//   10, 2 up to 17: at most 80 words); only the elements that took part in
 //   a swap are written back.
 // - kbo_bitonic_tile: the stages below a tile's size, in shared memory
 //   with a barrier between stages: phase k from distance 2^j down, then
 //   phases k+1..k_end whole (the sort's first log2(tile) phases in one
 //   pass). The largest tile is the largest power of two up to 16 384
 //   elements whose n_ops rows fit the 232 448 bytes of shared memory a
-//   Hopper block may ask for (8192 for 5 and 7 rows, 4096 for 9); a phase's
-//   own tile pass takes the smallest tile that holds its remaining stages.
+//   Hopper block may ask for (8192 for 5 and 7 rows, 4096 for 9, 2048 for
+//   17); a phase's own tile pass takes the smallest tile that holds its
+//   remaining stages.
 //   Grouping the tile's stages in registers between barriers (as the
 //   register pass does) or in warp lanes measured slower on the H100 for
 //   the merges (PERF.md, PR 4).
@@ -260,6 +261,7 @@ int kbo_bitonic_regs(void* x, int n_ops, int n_comps, long long M, int j,
     KBO_REGS_CASE(5) KBO_REGS_CASE(6) KBO_REGS_CASE(7) KBO_REGS_CASE(8)
     KBO_REGS_CASE(9) KBO_REGS_CASE(10) KBO_REGS_CASE(11) KBO_REGS_CASE(12)
     KBO_REGS_CASE(13) KBO_REGS_CASE(14) KBO_REGS_CASE(15) KBO_REGS_CASE(16)
+    KBO_REGS_CASE(17)
 #undef KBO_REGS_CASE
   }
   return cudaErrorInvalidValue;
@@ -285,6 +287,7 @@ int kbo_bitonic_tile(void* x, int n_ops, int n_comps, long long M,
     KBO_TILE_CASE(5) KBO_TILE_CASE(6) KBO_TILE_CASE(7) KBO_TILE_CASE(8)
     KBO_TILE_CASE(9) KBO_TILE_CASE(10) KBO_TILE_CASE(11) KBO_TILE_CASE(12)
     KBO_TILE_CASE(13) KBO_TILE_CASE(14) KBO_TILE_CASE(15) KBO_TILE_CASE(16)
+    KBO_TILE_CASE(17)
 #undef KBO_TILE_CASE
   }
   return cudaErrorInvalidValue;

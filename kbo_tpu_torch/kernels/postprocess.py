@@ -19,9 +19,11 @@ skipped: skip alternates inside maximal runs, found with one cummax.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from kbo_tpu_torch.kernels import _build
@@ -193,11 +195,62 @@ def derandomize_translate_plain(ms: torch.Tensor, k: int, threshold: int,
 def _lib():
     lib = _build.load("derand_translate")
     n, p, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    lib.kbo_derand_translate_tile.argtypes = []
+    lib.kbo_derand_translate_tile.restype = i
+    lib.kbo_derand_translate_ctas_per_sm.argtypes = []
+    lib.kbo_derand_translate_ctas_per_sm.restype = i
     lib.kbo_derand_translate_tiles.argtypes = [n]
     lib.kbo_derand_translate_tiles.restype = n
-    lib.kbo_derand_translate.argtypes = [p, n, p, n, n, i, i, p, p, p, p]
+    lib.kbo_derand_translate.argtypes = [p, n, p, n, n, n, n, i, i, i, p, p, p]
     lib.kbo_derand_translate.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _resident_ctas(index: int) -> int:
+    """CTAs of the kernel the whole card holds at once."""
+    return (torch.cuda.get_device_properties(index).multi_processor_count
+            * _lib().kbo_derand_translate_ctas_per_sm())
+
+
+def _short_rows(Q: int, n_tiles: int, index: int) -> bool:
+    """Whether to run the kernel's short-row form (one CTA per row walking
+    its tiles: no look-back, no memset) rather than its look-back form (one
+    CTA per tile): when it takes no more waves of resident CTAs. Measured
+    on an H100 by device time (chip_smoke.py; PERF.md): the short-row form
+    is faster at 512 rows of 1-4 tiles and at 64 rows of one tile, the
+    look-back form at 64 rows of 2-8 tiles and at 8 rows of 4-32 tiles; at
+    512 rows of 8 tiles, as many waves either way, the two are within a
+    twentieth of each other."""
+    r = _resident_ctas(index)
+    return n_tiles * -(-Q // r) <= -(-Q * n_tiles // r)
+
+
+def _true_len_arg(true_len, Q: int, L: int, device):
+    """(int32 device tensor or None, its row stride, the scalar length) as
+    the kernel takes the true lengths. A Python or numpy int stays a kernel
+    argument: no host-to-device copy. A contiguous int32 tensor on the
+    device goes as it is (the common case, and the cheap one on the host)."""
+    if true_len is None:
+        return None, 0, L
+    if isinstance(true_len, (int, np.integer)):
+        return None, 0, int(true_len)
+    tl = true_len
+    if not (isinstance(tl, torch.Tensor) and tl.dtype == torch.int32
+            and tl.device == device and tl.is_contiguous()):
+        tl = torch.as_tensor(tl, device=device).to(torch.int32).contiguous()
+    if tl.numel() not in (1, Q):
+        raise ValueError(f"derandomize_translate wants {Q} true lengths or "
+                         f"one, not {tl.numel()}")
+    return tl, int(tl.numel() > 1), 0
+
+
+def _on(device):
+    """The device's context, entered only when it is not already current
+    (``torch.cuda.device`` alone costs microseconds of host time a call)."""
+    if device.index == torch._C._cuda_getDevice():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def derandomize_translate(ms: torch.Tensor, k: int, threshold: int,
@@ -208,34 +261,41 @@ def derandomize_translate(ms: torch.Tensor, k: int, threshold: int,
     when None). A 1-D input is one row.
 
     CUDA tensors launch ``csrc/derand_translate.cu``, the counterpart of the
-    TPU kernel ``attic/pallas_postprocess.py::fused_postprocess_core``; it
-    writes 0 at and past ``true_len``. CPU tensors take
-    :func:`derandomize_translate_plain`. Rows may be strided views (a row
-    stride, unit stride inside a row).
+    TPU kernel ``attic/pallas_postprocess.py::fused_postprocess_core``, once
+    per call (after one memset of its scratch in the look-back form, see
+    :func:`_short_rows`); it reads ``ms`` once and writes 0 at and past
+    ``true_len``. CPU tensors take :func:`derandomize_translate_plain`.
+    Rows may be strided views (a row stride, unit stride inside a row).
     """
     if ms.device.type == "cpu":
         return derandomize_translate_plain(ms, k, threshold, true_len)
-    L = ms.shape[-1]
-    rows, tl, one = _as_rows(ms, true_len, L)
+    one = ms.dim() == 1
+    rows = ms[None] if one else ms
     if rows.dtype != torch.int32:
         raise TypeError("derandomize_translate wants int32 ms")
     if rows.dim() != 2:
         raise ValueError("derandomize_translate wants ms [Q, L] or [L]")
+    Q, L = rows.shape
     if L > 1 and rows.stride(1) != 1:
         raise ValueError("derandomize_translate wants unit stride in a row")
-    Q = rows.shape[0]
-    tl = tl.reshape(Q).contiguous()
     device = ms.device
+    tl, tl_stride, tl_scalar = _true_len_arg(true_len, Q, L, device)
     lib = _lib()
     n_tiles = lib.kbo_derand_translate_tiles(L)
-    tot = torch.empty(4 * Q * n_tiles, dtype=torch.int32, device=device)
-    carry = torch.empty(4 * Q * n_tiles, dtype=torch.int32, device=device)
+    short = _short_rows(Q, n_tiles, device.index)
+    scratch = None if short else torch.empty(
+        Q * n_tiles + 1, dtype=torch.int64, device=device)
     out = torch.empty((Q, L), dtype=torch.uint8, device=device)
-    with torch.cuda.device(device):
+    with _on(device):
+        # the current stream's handle, as torch's own compiled code reads it
+        # (torch.cuda.current_stream(...).cuda_stream builds a Stream object)
+        stream = torch._C._cuda_getCurrentRawStream(device.index)
         err = lib.kbo_derand_translate(
-            rows.data_ptr(), rows.stride(0) if Q > 1 else L, tl.data_ptr(),
-            Q, L, k, int(threshold), tot.data_ptr(), carry.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+            rows.data_ptr(), rows.stride(0) if Q > 1 else L,
+            None if tl is None else tl.data_ptr(), tl_stride, tl_scalar,
+            Q, L, k, int(threshold), int(short),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            stream,
         )
     _build.check(err, "derandomize_translate")
     derandomize_translate.launches += 1

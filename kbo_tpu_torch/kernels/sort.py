@@ -249,7 +249,10 @@ def bitonic_sort_plain(ops, n_comps: int):
 # several stages (csrc/bitonic.cu)
 _SMEM_BYTES = 232_448  # dynamic shared memory a Hopper block may ask for
 _MAX_TILE = 1 << 14
-_MAX_OPS = 16
+# the most operand rows a caller passes: the 2-bit join's W2 <= 16 key words
+# (k < 255) plus its payload; the 3-bit joins run only for k < 128, at most
+# 13 key words, a tag word and the payload
+_MAX_OPS = 17
 
 
 class RegsPass(NamedTuple):
@@ -364,7 +367,7 @@ def bitonic_merge(a_ops, b_ops, n_comps: int):
     kbo_tpu's ``bitonic_merge(..., slice_output=False)``.
 
     a_ops/b_ops: int32 ``[n_ops, n]`` rows of uint32 patterns (key words,
-    then payloads), n_ops <= 16 on the card. Returns ``[n_ops, M]``,
+    then payloads), n_ops <= 17 on the card. Returns ``[n_ops, M]``,
     M = pow2 >= max(65536, na+nb): the merge followed by all-ones pads
     (payload 0xFFFFFFFF), equal keys in the network's (not a stable) order.
     CUDA tensors launch ``csrc/bitonic.cu``, whose first pass reads the
@@ -390,7 +393,7 @@ def bitonic_sort(ops, n_comps: int):
     """Sort operand rows by their first ``n_comps`` rows, as kbo_tpu's
     ``bitonic_sort``: all-ones pads to a power of two >= 65536, the full
     network, the first n columns back. Not stable. CUDA tensors launch
-    ``csrc/bitonic.cu`` (n_ops <= 16); CPU tensors take
+    ``csrc/bitonic.cu`` (n_ops <= 17); CPU tensors take
     :func:`bitonic_sort_plain`."""
     if ops.device.type == "cpu":
         return bitonic_sort_plain(ops, n_comps)

@@ -45,7 +45,7 @@ def _flatten(passes, M):
     return out
 
 
-@pytest.mark.parametrize("n_ops", [3, 5, 7, 9])
+@pytest.mark.parametrize("n_ops", [3, 5, 7, 9, 17])
 def test_schedule_is_the_network(n_ops):
     for lm in range(16, 25):
         M = 1 << lm
@@ -66,8 +66,8 @@ def test_schedule_is_the_network(n_ops):
 
 def test_schedule_pass_counts():
     """The largest tiles and the pass counts at the chip's shapes."""
-    assert [1 << _bitonic_tile_log(n, 1 << 24) for n in (3, 5, 7, 9)] == [
-        16384, 8192, 8192, 4096]
+    assert [1 << _bitonic_tile_log(n, 1 << 24) for n in (3, 5, 7, 9, 17)] == [
+        16384, 8192, 8192, 4096, 2048]
     # find-core's merge (5 rows) and the map sweep's (7 rows) at 2^24
     assert len(_bitonic_passes(1 << 24, 5, sort=False)) == 4
     assert len(_bitonic_passes(1 << 24, 7, sort=False)) == 5
@@ -76,8 +76,12 @@ def test_schedule_pass_counts():
     passes = _bitonic_passes(1 << 23, 5, sort=True)
     assert len(passes) == 29
     assert sum(isinstance(p, RegsPass) for p in passes) == 18
+    # 17 rows (the 2-bit join at k = 241..254: 16 key words and the
+    # payload) take register passes of 2 stages; 18 is beyond every caller
+    assert _bitonic_r(17) == 2
+    assert len(_bitonic_passes(1 << 24, 17, sort=False)) == 8
     with pytest.raises(ValueError, match="operand rows"):
-        _bitonic_r(17)
+        _bitonic_r(18)
 
 
 def _layout(a, b, idx, M):
@@ -202,7 +206,8 @@ MERGES = [(M, n_ops, na, nb)
           for n_ops in (3, 5, 7, 9)
           for M, na, nb in ((1 << 16, 40_000, 20_001), (1 << 17, 0, 70_000),
                             (1 << 18, 150_000, 0))] + [
-    (1 << 17, 5, 65_536, 65_536), (1 << 16, 9, 1, 65_535)]
+    (1 << 17, 5, 65_536, 65_536), (1 << 16, 9, 1, 65_535),
+    (1 << 16, 17, 30_000, 30_001), (1 << 17, 17, 0, 70_000)]
 
 
 @pytest.mark.parametrize("M,n_ops,na,nb", MERGES)
@@ -217,7 +222,7 @@ def test_merge_passes_equal_plain(M, n_ops, na, nb):
 
 @pytest.mark.parametrize("n,n_ops,n_comps", [
     (50_000, 3, 2), (65_536, 5, 4), (40_000, 7, 6), (60_000, 9, 8),
-    (100_000, 5, 3), (200_000, 3, 1)])
+    (100_000, 5, 3), (200_000, 3, 1), (40_000, 17, 16)])
 def test_sort_passes_equal_plain(n, n_ops, n_comps):
     rng = np.random.default_rng(n + n_ops)
     ops = _table(rng, n_ops, n, n_comps)

@@ -6,14 +6,21 @@ skip. Run them on a GPU machine with
     python -m pytest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 import kbo_tpu_torch
+from kbo_tpu_torch.engine import device_index
 from kbo_tpu_torch.index.encode import encode_ascii
 from kbo_tpu_torch.kernels.join import clamp_scan, clamp_scan_plain
+from kbo_tpu_torch.kernels.ms import make_flat_buffer, ms2_core
+from kbo_tpu_torch.kernels import postprocess
 from kbo_tpu_torch.kernels.postprocess import (
+    _lib as _post_lib,
     derandomize_translate,
     derandomize_translate_plain,
 )
@@ -194,12 +201,30 @@ def test_find_batch_on_card_equals_cpu(cuda):
     assert encode_ascii(queries[0]).size == len(one)
 
 
-@pytest.mark.parametrize("Q,L", [(1, 1), (1, 1024), (3, 5000), (512, 300),
-                                 (2, 1024 * 6 + 17)])
+_DT_CONST = dict(re.findall(
+    r"constexpr int (k\w+) = (\d+);",
+    (Path(kbo_tpu_torch.__file__).resolve().parent / "kernels" / "csrc"
+     / "derand_translate.cu").read_text()))
+DT_TILE = int(_DT_CONST["kThreads"]) * int(_DT_CONST["kItems"])  # kTile
+# rows of one tile and of several, many rows and few; 70 tiles make the
+# look-back walk several windows of 32
+DT_SHAPES = [(1, 1), (1, 1024), (3, 5000), (512, 300), (2, 1024 * 6 + 17),
+             (64, DT_TILE), (512, 3 * DT_TILE + 77), (1, 70 * DT_TILE + 5),
+             (3, 70 * DT_TILE + 5), (8, 9 * DT_TILE + 77)]
+
+
+@pytest.mark.parametrize("Q,L", DT_SHAPES)
 @pytest.mark.parametrize("lipschitz", [True, False])
-def test_derandomize_translate_kernel(cuda, Q, L, lipschitz):
-    """Bit-equal to the plain version below each row's true length, 0 at
-    and past it; row lengths 0, 1, 2, L and one on a tile edge."""
+@pytest.mark.parametrize("form", ["short-row", "look-back"])
+def test_derandomize_translate_kernel(cuda, monkeypatch, Q, L, lipschitz,
+                                      form):
+    """Both forms of the kernel, forced in turn, bit-equal to the plain
+    version below each row's true length, 0 at and past it; row lengths 0,
+    1, 2, L, on a tile edge and mid-tile; rows as unaligned strided views;
+    an int true length as a kernel argument."""
+    assert _post_lib().kbo_derand_translate_tile() == DT_TILE
+    monkeypatch.setattr(postprocess, "_short_rows",
+                        lambda *a: form == "short-row")
     rng = np.random.default_rng(Q * L + lipschitz)
     k, t = 51, 19
     if lipschitz:
@@ -208,7 +233,7 @@ def test_derandomize_translate_kernel(cuda, Q, L, lipschitz):
     else:
         ms = rng.integers(-3, k + 3, (Q, L)).astype(np.int32)
     lengths = rng.integers(0, L + 1, Q).astype(np.int32)
-    edge = [L, 0, 1, 2, 1024, 2048]
+    edge = [L, 0, 1, 2, DT_TILE, 2 * DT_TILE, DT_TILE + 777, L - 1]
     lengths[: min(Q, len(edge))] = np.minimum(edge, L)[: min(Q, len(edge))]
     ms_d = torch.from_numpy(ms).to(cuda)
     tl_d = torch.from_numpy(lengths).to(cuda)
@@ -221,10 +246,44 @@ def test_derandomize_translate_kernel(cuda, Q, L, lipschitz):
     assert got.dtype == torch.uint8 and got.shape == (Q, L)
     assert torch.equal(got[in_len], want[in_len])
     assert not got[~in_len].any()
-    # rows as strided views (the find pipeline's [Q, k-1+L] buffer)
+    # rows as strided views (the find pipeline's [Q, k-1+L] buffer: each
+    # row starts 50 words, 200 bytes, past a 16-byte boundary)
     wide = torch.zeros((Q, L + 50), dtype=torch.int32, device=cuda)
     wide[:, 50:] = ms_d
     assert torch.equal(derandomize_translate(wide[:, 50:], k, t, tl_d), got)
+    # an int true length (no host-to-device copy) and a one-element tensor
+    # both stand for every row
+    n = int(lengths[0])
+    by_int = derandomize_translate(ms_d, k, t, n)
+    assert torch.equal(by_int, derandomize_translate(
+        ms_d, k, t, torch.tensor([n], dtype=torch.int32, device=cuda)))
+    want_n = derandomize_translate_plain(ms_d, k, t, n)
+    assert torch.equal(by_int[:, :n], want_n[:, :n])
+    assert not by_int[:, n:].any()
+
+
+def test_derandomize_translate_repeat(cuda):
+    """A look-back race would show only in some runs: 20 back-to-back calls
+    at 2^22 + 1001 positions in 2 rows, each one launch, each bit-equal;
+    the status words and the ticket are cleared before every call."""
+    rng = np.random.default_rng(77)
+    k, t, L = 51, 19, (1 << 22) + 1001
+    steps = rng.choice(np.array([1, 1, 1, 0, -5, -40]), (2, L))
+    ms = torch.from_numpy(
+        np.clip(np.cumsum(steps, axis=1) % (k + 9), 0, k).astype(np.int32)
+    ).to(cuda)
+    tl = torch.tensor([L, L - 3 * DT_TILE - 5], dtype=torch.int32,
+                      device=cuda)
+    want = derandomize_translate(ms, k, t, tl)
+    in_len = torch.arange(L, device=cuda)[None, :] < tl[:, None]
+    assert torch.equal(want[in_len],
+                       derandomize_translate_plain(ms, k, t, tl)[in_len])
+    before = derandomize_translate.launches
+    outs = [derandomize_translate(ms, k, t, tl) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert derandomize_translate.launches == before + 20
+    for run, got in enumerate(outs):
+        assert torch.equal(got, want), f"run {run} of 20 differs"
 
 
 def test_derandomize_translate_rejects(cuda):
@@ -274,6 +333,27 @@ def test_bitonic_merge_kernel(cuda, na, nb, W):
     torch.cuda.synchronize()
     assert bitonic_merge.launches == before + 1
     assert torch.equal(got, bitonic_merge_plain(a_ops, b_ops, W))
+
+
+def test_bitonic_merge_17_rows(cuda):
+    """k = 254: the 2-bit join's 16 key words and its payload are 17
+    operand rows; ms2_core with merge="bitonic" equals merge="path"."""
+    rng = np.random.default_rng(254)
+    genome = BASES[rng.integers(0, 4, 40_000)].tobytes()
+    idx = kbo_tpu_torch.build([genome], kbo_tpu_torch.BuildOpts(k=254))
+    dev = device_index(idx, cuda)
+    assert dev.keys2.shape[0] == 16
+    query = bytearray(genome[5000:25_000])
+    for p in range(300, 20_000, 900):
+        query[p] = BASES[(np.searchsorted(BASES, query[p]) + 1) % 4]
+    buf, _ = make_flat_buffer(encode_ascii(bytes(query)), 254)
+    buf = torch.from_numpy(buf).to(cuda)
+    before = bitonic_merge.launches
+    got = ms2_core(dev.keys2, dev.cap2, buf, 254, merge="bitonic")
+    torch.cuda.synchronize()
+    assert bitonic_merge.launches == before + 1
+    want = ms2_core(dev.keys2, dev.cap2, buf, 254)
+    assert torch.equal(got, want) and int(want.max()) == 254
 
 
 @pytest.mark.parametrize("n,W", [(100_000, 2), (65_536, 4), (300_000, 3)])
