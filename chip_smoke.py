@@ -48,15 +48,35 @@ Phases, each printed as it passes; any failure exits non-zero:
    sweep against the single-shot one; launch counts read around each
    entry-point call alone; outputs must equal the port's own device="cpu"
    run byte for byte;
-6. times on the card (CUDA events or the host clock, medians of 7; by
+6. the call slice on the same pair: api.call at k=51 over the whole pair
+   (the drop scan, the anchor rounds' interval joins, the vs-sequence
+   join), also with add_revcomp, and at k=254 on a 400 kbase slice (27 key
+   rows in the interval merge, 26 words in the vs-sequence scans), each
+   equal to the port's own device="cpu" run of the whole input, with the
+   variants called and the planted SNP and deletion sites recovered; the
+   reference's call doctest (the short-reference branch, its three
+   variants); api.build_device on the indexed side and phase 4's batch
+   through api.find_batch against it, RLE for RLE equal to the CPU run;
+   launch counts read around one call of each (a call: 2 merges plus one
+   per anchor round, 6 scans); then the kernels at the shapes these calls
+   gave them (captured from the calls: merge_path at the interval probe,
+   7 and 27 key rows, and at the sequence index's join; clamp_scan at the
+   vs-sequence join, 6 and 26 words, and at the sequence index's join;
+   derandomize_translate at its batch; the interval probe with
+   merge="bitonic" against merge="path", and that bitonic merge) against
+   their plain versions, bit for bit;
+7. times on the card (CUDA events or the host clock, medians of 7; by
    stage, the refinement's stages and the per-index extension table
-   included; merge_path, clamp_scan and derandomize_translate also per call
-   in runs of 10 back-to-back calls; derandomize_translate's two forms by
-   device time at 1 to 32 tiles a row), each with the card's name
-   and power limit, then one torch.profiler run of each workload (and of
-   one bitonic merge and one bitonic sort, by pass kind): device busy share
-   and the kernels that take the time; and one of a derandomize_translate
-   call at each shape: its kernels, memsets and host-to-device copies.
+   included; call by the host clock around it and by phase from the run's
+   stats, its device stages alone, find_batch against build_device's index
+   beside the full index; merge_path, clamp_scan and derandomize_translate
+   also per call in runs of 10 back-to-back calls; derandomize_translate's
+   two forms by device time at 1 to 32 tiles a row), each with the card's
+   name and power limit, then one torch.profiler run of each workload (and
+   of one bitonic merge and one bitonic sort, by pass kind): device busy
+   share and the kernels that take the time; and one of a
+   derandomize_translate call at each shape: its kernels, memsets and
+   host-to-device copies.
 
 Prints the per-kernel JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -134,7 +154,9 @@ def main() -> int:
 
     import torch
 
-    from kbo_tpu_torch import BuildOpts, FindOpts, MapOpts, api
+    from kbo_tpu_torch import BuildOpts, CallOpts, FindOpts, MapOpts, api
+    from kbo_tpu_torch import engine as engine_mod
+    from kbo_tpu_torch import pipeline as pipeline_mod
     from kbo_tpu_torch.engine import compute_ms_values_many_device, device_index
     from kbo_tpu_torch.index.encode import encode_ascii
     from kbo_tpu_torch.kernels import _build
@@ -219,9 +241,12 @@ def main() -> int:
                   f"frame, {st} B spill stores, {ld} B spill loads",
                   flush=True)
     # W = 0 in a template argument is the runtime-W instantiation
-    for src, lib, fn in (("merge_path", sort_lib(), "kbo_merge_path_smem"),
-                         ("clamp_scan", join_lib(), "kbo_clamp_scan_smem")):
-        smem = {w: getattr(lib, fn)(w) for w in (2, 3, 4, 6, 7)}
+    for src, lib, fn, ws in (
+            ("merge_path", sort_lib(), "kbo_merge_path_smem",
+             (2, 3, 4, 6, 7, 26, 27)),
+            ("clamp_scan", join_lib(), "kbo_clamp_scan_smem",
+             (2, 3, 4, 6, 7, 26))):
+        smem = {w: getattr(lib, fn)(w) for w in ws}
         print(f"{src}.cu dynamic shared memory per CTA by W: "
               f"{json.dumps(smem)} B", flush=True)
 
@@ -536,7 +561,8 @@ def main() -> int:
           [bitonic_merge(a, b, 16)], [bitonic_merge_plain(a, b, 16)])
     del a, b
     K254, n254 = 254, min(n, 400_000)
-    dev254 = device_index(api.build([query[:n254]], BuildOpts(k=K254)), cuda)
+    idx254 = api.build([query[:n254]], BuildOpts(k=K254, build_select=True))
+    dev254 = device_index(idx254, cuda)
     buf254, _ = make_flat_buffer(encode_ascii(ref[:n254]), K254)
     buf254 = torch.from_numpy(buf254).to(cuda)
     before = bitonic_merge.launches
@@ -882,7 +908,193 @@ def main() -> int:
           f"{out_f.count(b'-')} '-' in the translation); map_batch: 8 contigs "
           f"of {len(contigs[0])} bases equal the CPU run", flush=True)
 
-    # ---- 6. times on the card
+    # ---- 6. the call slice and the device-built sequence index
+    def tuples(variants):
+        return [(v.query_pos, v.query_chars, v.ref_chars) for v in variants]
+
+    def copts(k=K, rc=False):
+        return CallOpts(sbwt_build_opts=BuildOpts(
+            k=k, build_select=True, add_revcomp=rc))
+
+    def capture(fn, names):
+        """Run fn with the named functions (module, attribute) recording
+        their arguments; returns (fn's result, {attribute: [args, ...]})."""
+        got = {attr: [] for _, attr in names}
+        real = {attr: getattr(mod, attr) for mod, attr in names}
+
+        def rec(attr):
+            def f(*a, **kw):
+                got[attr].append(a)
+                return real[attr](*a, **kw)
+            return f
+
+        for mod, attr in names:
+            setattr(mod, attr, rec(attr))
+        try:
+            return fn(), got
+        finally:
+            for mod, attr in names:
+                setattr(mod, attr, real[attr])
+
+    call_names = [(ms_mod, "merge_path"), (ms_mod, "clamp_scan"),
+                  (ms_mod, "intervals3_windows_core"),
+                  (engine_mod, "compute_ms_values_vs_seq_device")]
+    t0 = time.perf_counter()
+    reset_counts()
+    reset_stats()
+    call_gpu, call_args = capture(
+        lambda: api.call(index, ref, copts(), device=cuda), call_names)
+    rounds = get_stats().as_dict()["call_anchor_rounds"]
+    # the row's join, one interval join per anchor round, the 2-bit k-mer
+    # batch; two scans each for the row's join, the k-mer batch and the
+    # vs-sequence join
+    CALL = {**ONE_JOIN, "merge_path": 2 + rounds, "clamp_scan": 6,
+            "derandomize_translate": 0}
+    launches["call"] = read_counts("call", CALL)
+    reset_counts()
+    call_rc_gpu = api.call(index, ref, copts(rc=True), device=cuda)
+    read_counts("call add_revcomp", CALL)
+    print(f"call on the card: {time.perf_counter() - t0:.2f}s (first runs), "
+          f"{rounds} anchor rounds, launches per call "
+          f"{json.dumps(launches['call'])}", flush=True)
+    t0 = time.perf_counter()
+    for label, got, rc in (("", call_gpu, False),
+                           (" add_revcomp", call_rc_gpu, True)):
+        want = api.call(index, ref, copts(rc=rc), device="cpu")
+        if tuples(got) != tuples(want):
+            raise SystemExit(f"FAIL call{label} differs from the CPU run")
+    if not call_gpu:
+        raise SystemExit("FAIL call found no variant")
+    # the planted sites in the streamed side's coordinates: SNPs that
+    # changed a base, and 3-base deletions of the indexed side (3-base
+    # insertions here), each shifted by the deletions before it
+    rng = np.random.default_rng(42)
+    rng.integers(0, 4, n)
+    snps = {p for p in range(500, n - 500, 1000)
+            if b"ACGT"[rng.integers(0, 4)] != ref[p]}
+    dels = [p + 3 * j for j, p in
+            enumerate(range(n // 50, n - n // 50, n // 10))]
+    hit_snp = sum(v.query_pos in snps and len(v.query_chars) == 1
+                  == len(v.ref_chars) for v in call_gpu)
+    hit_del = sum(any(abs(v.query_pos - p) <= K and len(v.query_chars) == 3
+                      and not v.ref_chars for v in call_gpu) for p in dels)
+    print(f"call: {n} bases, {len(call_gpu)} variants ({len(call_rc_gpu)} "
+          f"with add_revcomp), both equal the CPU run "
+          f"({time.perf_counter() - t0:.1f}s); planted sites recovered: "
+          f"{hit_snp} of {len(snps)} SNPs, {hit_del} of {len(dels)} 3-base "
+          f"deletions", flush=True)
+
+    # the short-reference branch (host build of the reference's index):
+    # the reference's call doctest (src/lib.rs:518-545)
+    doc_ref = (b"TCGTGGATCGATACACGCTAGCAGGCTGACTCGATGGGATACTATGTGTTATAGCAATT"
+               b"CGGATCGATCGA")
+    doc_q = (b"TCGTGGATCGATACACGCTAGCCTGACTCGATGGGATACCATGTGTTATAGCAATTCCGG"
+             b"ATCGATCGA")
+    doc_opts = CallOpts(max_error_prob=0.001,
+                        sbwt_build_opts=BuildOpts(k=20, build_select=True))
+    doc = tuples(api.call(api.build([doc_q], doc_opts.sbwt_build_opts),
+                          doc_ref, doc_opts, device=cuda))
+    if doc != [(22, b"AGG", b""), (42, b"T", b"C"), (60, b"", b"C")]:
+        raise SystemExit(f"FAIL call doctest on the card: {doc}")
+    print("call doctest (72-base reference, host-built index) gives the "
+          "reference's three variants on the card", flush=True)
+
+    # k = 254: 27 key rows through the interval merge (its half-length
+    # tiles), 26 words through the vs-sequence scans
+    reset_counts()
+    reset_stats()
+    call254_gpu, call254_args = capture(
+        lambda: api.call(idx254, ref[:n254], copts(K254), device=cuda),
+        call_names)
+    rounds254 = get_stats().as_dict()["call_anchor_rounds"]
+    launches["call k=254"] = read_counts(
+        "call k=254", {**CALL, "merge_path": 2 + rounds254})
+    if tuples(call254_gpu) != tuples(api.call(idx254, ref[:n254],
+                                              copts(K254), device="cpu")):
+        raise SystemExit("FAIL call at k=254 differs from the CPU run")
+    if not call254_gpu:
+        raise SystemExit("FAIL call at k=254 found no variant")
+    print(f"call at k=254 on {n254} bases: {len(call254_gpu)} variants, "
+          f"{rounds254} anchor rounds, equal to the CPU run", flush=True)
+
+    # build_device + find_batch: phase 4's batch against the indexed side's
+    # own sorted window keys
+    t0 = time.perf_counter()
+    seq_index = api.build_device([query], BuildOpts(k=K), device=cuda)
+    torch.cuda.synchronize()
+    t_build_dev = (time.perf_counter() - t0) * 1e3
+    reset_counts()
+    seq_names = [(ms_mod, "merge_path"), (ms_mod, "clamp_scan"),
+                 (pipeline_mod, "derandomize_translate")]
+    rle_seq_gpu, seq_args = capture(
+        lambda: api.find_batch(q_list, seq_index, FindOpts()), seq_names)
+    launches["find_batch DeviceSeqIndex"] = read_counts(
+        "find_batch DeviceSeqIndex")
+    seq_cpu = api.build_device([query], BuildOpts(k=K), device="cpu")
+    if seq_cpu.n_kmers != seq_index.n_kmers or \
+            api.find_batch(q_list, seq_cpu, FindOpts()) != rle_seq_gpu:
+        raise SystemExit("FAIL find_batch against build_device's index "
+                         "differs from the CPU run")
+    del seq_cpu
+    print(f"build_device + find_batch[{QN}x{QL}]: {seq_index.n_kmers} "
+          f"distinct k-mers, {sum(len(r) for r in rle_seq_gpu)} segments, "
+          f"RLE lists equal the CPU run", flush=True)
+
+    # the slice's kernels at their new shapes against their plain versions
+    def first(args, pred):
+        return next(a for a in args if pred(a))
+
+    new_shapes = {
+        "interval k=51": first(call_args["merge_path"],
+                               lambda a: a[0].shape[0] == 7),
+        "interval k=254": first(call254_args["merge_path"],
+                                lambda a: a[0].shape[0] == 27),
+        "seq-index": seq_args["merge_path"][0],
+    }
+    for label, ops in new_shapes.items():
+        check("merge_path", f"{label} W={ops[0].shape[0]} "
+              f"na={ops[0].shape[1]} nb={ops[2].shape[1]}",
+              merge_path(*ops), merge_path_plain(*ops))
+    # (words, cap, bits) of the first scan of each join (the direction is
+    # a keyword argument)
+    scan_shapes = {
+        "vs-seq": first(call_args["clamp_scan"], lambda a: a[2] == 3),
+        "vs-seq k=254": first(call254_args["clamp_scan"], lambda a: a[2] == 3),
+        "seq-index": seq_args["clamp_scan"][0],
+    }
+    for label, (sw, cp, bits) in scan_shapes.items():
+        for rev in (False, True):
+            check("clamp_scan", f"{label} bits={bits} W={sw.shape[0]} "
+                  f"reverse={rev} M={sw.shape[1]}",
+                  [clamp_scan(sw, cp, bits, rev)],
+                  [clamp_scan_plain(sw, cp, bits, rev)])
+    seq_ms, _k, _thr, seq_tl = seq_args["derandomize_translate"][0]
+    check_dt(f"seq-index batch {seq_ms.shape[0]}x{seq_ms.shape[1]} "
+             f"(strided rows)", seq_ms, seq_tl)
+    # merge="bitonic" in the interval probe (W + 2 = 8 operand rows)
+    iv_in = call_args["intervals3_windows_core"][0]
+    reset_counts()
+    iv_bit = ms_mod.intervals3_windows_core(*iv_in, merge="bitonic")
+    launches["intervals merge=bitonic"] = read_counts(
+        "intervals merge=bitonic",
+        {**only_bitonic, "clamp_scan": 0})
+    iv_path = ms_mod.intervals3_windows_core(*iv_in)
+    if not all(torch.equal(x, y) for x, y in zip(iv_bit, iv_path)):
+        raise SystemExit("FAIL the interval probe with merge=bitonic differs "
+                         "from merge=path")
+    ak, ap, bk, bp = new_shapes["interval k=51"]
+    bitonic_in["interval k=51"] = (
+        torch.cat([ak, ap[None]]), torch.cat([bk, bp[None]]), ak.shape[0])
+    got = bitonic_merge(*bitonic_in["interval k=51"])
+    check("bitonic_merge", f"interval k=51 W={ak.shape[0]} M={got.shape[1]}",
+          [got], [bitonic_merge_plain(*bitonic_in["interval k=51"])])
+    print(f"merge=bitonic: the interval probe over {iv_in[1].shape[0]} "
+          f"windows equals merge=path ({ak.shape[0] + 1} operand rows, "
+          f"{passes_of(got.shape[1], ak.shape[0] + 1, False)})", flush=True)
+    del got, iv_bit, iv_path
+    vs_seq_in = call_args["compute_ms_values_vs_seq_device"][0]
+
+    # ---- 7. times on the card
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1072,8 +1284,68 @@ def main() -> int:
               f"MiB above the {base_mem / 2**20:.1f} MiB the script holds",
               flush=True)
 
+    # call: the host clock around the call (it returns host objects), and
+    # its phases by the host clock of the run's stats (each of the first
+    # three ends in a fetch), medians over the same 7 calls
+    call_stats = []
+
+    def one_call():
+        reset_stats()
+        api.call(index, ref, copts(), device=cuda)
+        call_stats.append(get_stats().as_dict())
+
+    t_call = host_ms(one_call)
+    call_stats = call_stats[1:]
+    print(f"{tag} call: {t_call:.3f} ms ({n / t_call * 1e3 / 1e6:.2f} "
+          f"Mbases/s) over {n} bases, {len(call_gpu)} variants, host clock "
+          f"around the call", flush=True)
+    for st_name in ("call_drops", "call_anchors", "call_kmer_joins",
+                    "call_resolve"):
+        med = statistics.median(c[f"{st_name}_s"] for c in call_stats) * 1e3
+        print(f"{tag} call stage {st_name}: {med:.3f} ms (host clock)",
+              flush=True)
+    t_call_rc = host_ms(lambda: api.call(index, ref, copts(rc=True),
+                                         device=cuda))
+    print(f"{tag} call add_revcomp: {t_call_rc:.3f} ms "
+          f"({n / t_call_rc * 1e3 / 1e6:.2f} Mbases/s)", flush=True)
+    # the device stages of the call alone (CUDA events): the MS row, the
+    # drop scan on it, one interval join (the first anchor round's
+    # probe), the two k-mer batches
+    dq = device_index(index, cuda)
+    ms_row_call = ms_mod.query_ms_row_device(dq, codes)
+    d_call = random_match_threshold(K, index.n_kmers, 4, 1e-7)
+    kmer_batch = call_args["compute_ms_values_vs_seq_device"][0][1]
+    for name, fn in (
+        ("MS row (query_ms_row_device)",
+         lambda: ms_mod.query_ms_row_device(dq, codes)),
+        ("drop scan (ms_drops_device, fetch included)",
+         lambda: ms_mod.ms_drops_device(ms_row_call, d_call)),
+        (f"interval join of the first round ({iv_in[1].shape[0]} windows)",
+         lambda: ms_mod.intervals3_windows_core(*iv_in)),
+        (f"2-bit k-mer batch ({len(kmer_batch)} k-mers)",
+         lambda: compute_ms_values_many_device(index, kmer_batch, cuda)),
+        (f"vs-sequence join ({len(kmer_batch)} k-mers against {n} "
+         f"positions)",
+         lambda: engine_mod.compute_ms_values_vs_seq_device(*vs_seq_in)),
+    ):
+        print(f"{tag} call stage {name}: {dev_ms(fn):.3f} ms", flush=True)
+    t_seq = host_ms(lambda: api.find_batch(q_list, seq_index, FindOpts()))
+    print(f"{tag} find_batch[{QN}x{QL}] against build_device's index: "
+          f"{t_seq:.3f} ms ({QN / t_seq * 1e3:.1f} queries/s; the full "
+          f"index {t_batch:.3f} ms); build_device {t_build_dev:.3f} ms "
+          f"once (host clock, first call)", flush=True)
+
     # each kernel alone at the find-core and map shapes, beside its plain
-    # version, its byte bound and (where there is one) a library call
+    # version, its byte bound and (where there is one) a library call: the
+    # bare torch.sort passes of the radix sort over the same keys
+    def lib_sort_of(words):
+        keys = [k.contiguous() for k in _pack_key_words(words)]
+
+        def run():
+            for key in reversed(keys):
+                torch.sort(key, stable=True)
+        return run
+
     rows, runs = {}, {}
     for label, ((ak, ap, bk, bp), bits) in shapes.items():
         W = ak.shape[0]
@@ -1108,17 +1380,39 @@ def main() -> int:
         )
         del sw, sp, cp
         rows[label] = r
+    # the call slice's shapes: the interval merges (W + 1 key rows), the
+    # vs-sequence scans, the sequence index's join and batch
+    for label, (ak, ap, bk, bp) in new_shapes.items():
+        W = ak.shape[0]
+        M = ak.shape[1] + bk.shape[1]
+        rows.setdefault(label, {})["merge_path"] = (
+            dev_ms(lambda: merge_path(ak, ap, bk, bp)),
+            dev_ms(lambda: merge_path_plain(ak, ap, bk, bp)),
+            2 * M * (W + 1) * 4 / hbm * 1e3,
+            dev_ms(lib_sort_of(torch.cat([ak, bk], 1))),
+            f"M={M}, W={W}",
+        )
+    for label, (sw, cp, bits) in scan_shapes.items():
+        W, M = sw.shape
+        rows.setdefault(label, {})["clamp_scan"] = (
+            dev_ms(lambda: clamp_scan(sw, cp, bits, False)),
+            dev_ms(lambda: clamp_scan_plain(sw, cp, bits, False)),
+            ((W + 1) * 4 + 4) * M / hbm * 1e3,
+            None,
+            f"M={M}, W={W}, bits={bits}, one direction",
+        )
+    Qs, Ls = seq_ms.shape
+    rows["seq-index"]["derandomize_translate"] = (
+        dev_ms(lambda: derandomize_translate(seq_ms, K, _thr, seq_tl)),
+        dev_ms(lambda: derandomize_translate_plain(seq_ms, K, _thr, seq_tl)),
+        (5 * Qs * Ls + 4 * Qs) / hbm * 1e3,
+        None,
+        f"Q={Qs}, L={Ls}",
+    )
+
     # bitonic_merge: the same merge work as merge_path (bound and library
     # call as its row); bitonic_sort: one read and one write of the
     # operands, beside the radix sort's torch.sort passes on the same keys
-    def lib_sort_of(words):
-        keys = [k.contiguous() for k in _pack_key_words(words)]
-
-        def run():
-            for key in reversed(keys):
-                torch.sort(key, stable=True)
-        return run
-
     for label, (a_ops, b_ops, W) in bitonic_in.items():
         M = a_ops.shape[1] + b_ops.shape[1]
         rows[label]["bitonic_merge"] = (
@@ -1252,6 +1546,9 @@ def main() -> int:
     breakdown("bitonic_merge find-core",
               lambda: bitonic_merge(*bitonic_in["find-core"]))
     breakdown("bitonic_sort query sort", lambda: bitonic_sort(sort_in, 4))
+    breakdown("call", lambda: api.call(index, ref, copts(), device=cuda))
+    breakdown(f"find_batch[{QN}x{QL}] against build_device's index",
+              lambda: api.find_batch(q_list, seq_index, FindOpts()))
 
     # one derandomize_translate call at each shape: one kernel, at most one
     # memset (the look-back form's status words), no host-to-device copy
@@ -1291,20 +1588,26 @@ def main() -> int:
         "merge_path": ("merge_path.cu", "kbo_tpu/kernels/pallas_sort.py:353",
                        ("map", main),
                        [("rk-vs-seq", main), ("find-core", "find-core"),
-                        ("batch", "find_batch")]),
+                        ("batch", "find_batch"), ("interval k=51", "call"),
+                        ("interval k=254", "call k=254"),
+                        ("seq-index", "find_batch DeviceSeqIndex")]),
         "clamp_scan": ("clamp_scan.cu", "kbo_tpu/kernels/pallas_join.py:191",
                        ("map", main),
                        [("rk-vs-seq", main), ("find-core", "find-core"),
-                        ("batch", "find_batch")]),
+                        ("batch", "find_batch"), ("vs-seq", "call"),
+                        ("vs-seq k=254", "call k=254"),
+                        ("seq-index", "find_batch DeviceSeqIndex")]),
         "derandomize_translate": (
             "derand_translate.cu", "attic/pallas_postprocess.py:258",
             ("map", main), [("find-core", "find-core"),
-                            ("batch", "find_batch")]),
+                            ("batch", "find_batch"),
+                            ("seq-index", "find_batch DeviceSeqIndex")]),
         "bitonic_merge": ("bitonic.cu", "kbo_tpu/kernels/pallas_sort.py:178",
                           ("find-core", "ms2_core merge=bitonic"),
                           [("map", "ms3_rows_core merge=bitonic"),
                            ("rk-vs-seq",
-                            "resolve_variants_core merge=bitonic")]),
+                            "resolve_variants_core merge=bitonic"),
+                           ("interval k=51", "intervals merge=bitonic")]),
         "bitonic_sort": ("bitonic.cu", "kbo_tpu/kernels/pallas_sort.py:558",
                          ("query sort", "bitonic_sort"), []),
     }

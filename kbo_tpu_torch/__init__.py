@@ -9,24 +9,38 @@ build from ``kernels/csrc`` at first use; on CPU tensors every kernel runs
 its plain PyTorch version.
 
 Served so far, on one device: :func:`build` -> :func:`find` /
-:func:`find_batch` / :func:`matches`, and :func:`map_` / :func:`map_batch`
+:func:`find_batch` / :func:`matches`; :func:`map_` / :func:`map_batch`
 with the default ``MapOpts()`` (the 3-bit rows sweep, a hand-written CUDA
 derandomize+translate kernel, candidate tables, device gap scoring and
-variant resolution, delta-run assembly). ``device=None`` means the CUDA
-card.
+variant resolution, delta-run assembly); :func:`call` (drop scan, sparse
+interval probes, the index-free join against the reference sequence); and
+``api.build_device``'s sequence index for :func:`find_batch`.
+``device=None`` means the CUDA card.
 """
 
-from kbo_tpu_torch.opts import BuildOpts, FindOpts, MapOpts, MatchOpts
-from kbo_tpu_torch.api import build, find, find_batch, map_, map_batch, matches
+from kbo_tpu_torch.opts import BuildOpts, CallOpts, FindOpts, MapOpts, MatchOpts
+from kbo_tpu_torch.api import (
+    build,
+    call,
+    find,
+    find_batch,
+    map_,
+    map_batch,
+    matches,
+)
 from kbo_tpu_torch.ops.format import RLE
+from kbo_tpu_torch.refine.variant_calling import Variant
 
 __all__ = [
     "BuildOpts",
+    "CallOpts",
     "FindOpts",
     "MapOpts",
     "MatchOpts",
     "RLE",
+    "Variant",
     "build",
+    "call",
     "find",
     "find_batch",
     "map_",

@@ -1,6 +1,7 @@
-"""Top-level API of the port: build, matches, find, find_batch, map_,
-map_batch (counterpart of kbo_tpu/api.py; reference: src/lib.rs:501-506
-build, :612-628 matches, :808-821 find, :720-761 map).
+"""Top-level API of the port: build, build_device, matches, find,
+find_batch, call, map_, map_batch (counterpart of kbo_tpu/api.py;
+reference: src/lib.rs:501-506 build, :547-573 call, :612-628 matches,
+:808-821 find, :720-761 map).
 
 Every query runs on ``device`` -- the CUDA card when it is None; pass
 ``device="cpu"`` to run the kernels' plain versions on the CPU.
@@ -13,25 +14,44 @@ import torch
 
 from kbo_tpu_torch import engine, pipeline
 from kbo_tpu_torch.index.build import build_sbwt_from_seqs
-from kbo_tpu_torch.index.encode import encode_ascii
+from kbo_tpu_torch.index.encode import encode_ascii, revcomp_ascii
 from kbo_tpu_torch.index.sbwt import SbwtIndex
 from kbo_tpu_torch.ops import derandomize, format as fmt, translate
 from kbo_tpu_torch.kernels import mapsweep, ms as ms_kernels
 from kbo_tpu_torch.kernels.ms import _bucket
 from kbo_tpu_torch.kernels.refine import max_tag
-from kbo_tpu_torch.opts import BuildOpts, FindOpts, MapOpts, MatchOpts
+from kbo_tpu_torch.opts import BuildOpts, CallOpts, FindOpts, MapOpts, MatchOpts
+from kbo_tpu_torch.refine import variant_calling
 from kbo_tpu_torch.refine.device_map import (
     DevRefOverflow,
     _pow2_cap,
     map_devref_finish,
 )
-from kbo_tpu_torch.utils.stats import stage
+from kbo_tpu_torch.utils.stats import get_stats, stage
 
 
 def build(seq_data, build_opts: BuildOpts | None = None) -> SbwtIndex:
     """Build an SBWT index (+ LCS) from sequences on the host
     (reference: src/lib.rs:501-506)."""
     return build_sbwt_from_seqs(seq_data, build_opts or BuildOpts())
+
+
+def build_device(seq_data, build_opts: BuildOpts | None = None,
+                 full: bool = False, device=None):
+    """Device-built index (no host SBWT construction): the sequences' own
+    sorted 3-bit window keys, a :class:`kbo_tpu_torch.kernels.ms.
+    DeviceSeqIndex` on ``device``, which serves :func:`find_batch`.
+    ``full=True`` (the complete join-table set) is not ported yet."""
+    if full:
+        raise NotImplementedError(
+            "build_device(full=True) (DeviceFullIndex): ROADMAP Queue 1 "
+            "item 6"
+        )
+    opts = build_opts or BuildOpts()
+    seqs = [s.encode() if isinstance(s, str) else bytes(s) for s in seq_data]
+    return ms_kernels.DeviceSeqIndex(
+        seqs, opts.k, add_revcomp=opts.add_revcomp, device=device
+    )
 
 
 def matches(query_seq: bytes, sbwt: SbwtIndex,
@@ -68,16 +88,21 @@ def find(query_seq: bytes, sbwt: SbwtIndex,
 def find_batch(query_seqs: list[bytes], sbwt, find_opts: FindOpts | None = None,
                mesh=None, device=None) -> list[list[fmt.RLE]]:
     """Batched :func:`find`: all queries go through one device pipeline,
-    with segments extracted on the device at ``max_gap_len == 0``."""
+    with segments extracted on the device at ``max_gap_len == 0``.
+
+    ``sbwt`` is an :class:`SbwtIndex` or a
+    :class:`kbo_tpu_torch.kernels.ms.DeviceSeqIndex` from
+    :func:`build_device` (the index-free path, on that index's device)."""
     opts = find_opts or FindOpts()
     if mesh is not None:
         raise NotImplementedError(
             "find_batch over a mesh: the multi-GPU layer is ROADMAP "
             "Queue 1 item 8"
         )
-    if not isinstance(sbwt, SbwtIndex):
+    seq_index = isinstance(sbwt, ms_kernels.DeviceSeqIndex)
+    if not (seq_index or isinstance(sbwt, SbwtIndex)):
         raise NotImplementedError(
-            "find_batch against a device-built index (DeviceSeqIndex): "
+            "find_batch against a device-built full index (DeviceFullIndex): "
             "ROADMAP Queue 1 item 6"
         )
     if not query_seqs:
@@ -88,13 +113,92 @@ def find_batch(query_seqs: list[bytes], sbwt, find_opts: FindOpts | None = None,
     code_list = [encode_ascii(bytes(q)) for q in query_seqs]
     total = sum(c.size for c in code_list)
     with stage("find_batch", bases=total):
-        if opts.max_gap_len == 0:
+        if seq_index and opts.max_gap_len == 0:
+            return pipeline.find_rle_batch_seq(sbwt, code_list, threshold)
+        if seq_index:
+            chars_list = pipeline.matches_batch_seq(sbwt, code_list, threshold)
+        elif opts.max_gap_len == 0:
             return pipeline.find_rle_batch(sbwt, code_list, threshold, device)
-        chars_list = pipeline.matches_batch(sbwt, code_list, threshold, device)
+        else:
+            chars_list = pipeline.matches_batch(sbwt, code_list, threshold,
+                                                device)
     return [
         fmt.run_lengths_gapped([chr(c) for c in chars], opts.max_gap_len)
         for chars in chars_list
     ]
+
+
+def call(sbwt_query: SbwtIndex, ref_seq: bytes,
+         call_opts: CallOpts | None = None, noisy_ms=None, ivals=None,
+         drops=None, anchors=None, anchor_rows=None, mesh=None,
+         device=None) -> list[variant_calling.Variant]:
+    """Call variants between a query index and a reference sequence
+    (reference: src/lib.rs:547-573).
+
+    Note the argument inversion mirrored from the reference: inside
+    ``call_variants`` the roles swap -- the "reference index" slot receives
+    the user's QUERY index and the streamed "query" is the user's REFERENCE
+    sequence, so ``Variant.query_pos`` is a position in the user's
+    reference, matching VCF POS semantics (reference: src/lib.rs:561-568).
+
+    A reference of at least 1024 bases takes the index-free device path:
+    the MS row of the streamed reference stays on the device, its drops
+    are compacted there, the anchor search reads sparse intervals against
+    that row, and the reference k-mers join against the reference's own
+    window keys (with its reverse complement after a separator when
+    ``add_revcomp``) instead of an index built here. A shorter one builds
+    its index on the host, as the reference does.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "call over a mesh: the multi-GPU layer is ROADMAP Queue 1 item 8"
+        )
+    opts = call_opts or CallOpts()
+    ref_seq = bytes(ref_seq)
+    with stage("call", bases=len(ref_seq)):
+        if len(ref_seq) >= 1024:
+            if opts.sbwt_build_opts.k != sbwt_query.k:
+                raise ValueError(
+                    f"call needs call_opts.sbwt_build_opts.k == the index's "
+                    f"k ({opts.sbwt_build_opts.k} != {sbwt_query.k})"
+                )
+            ref_codes = encode_ascii(ref_seq)
+            if noisy_ms is None and drops is None and ivals is None:
+                # a standalone call: the drops are compacted on the device
+                # and only their positions cross; the device row feeds the
+                # sparse interval provider
+                d = derandomize.random_match_threshold(
+                    sbwt_query.k, sbwt_query.n_kmers, 4, opts.max_error_prob
+                )
+                with stage("call_drops"):
+                    row = ms_kernels.query_ms_row_device(
+                        engine.device_index(sbwt_query, device), ref_codes
+                    )
+                    drops = ms_kernels.ms_drops_device(row, d)
+                ivals = engine.SparseIntervals(sbwt_query, ref_codes, ms=row)
+            if opts.sbwt_build_opts.add_revcomp:
+                sep = np.array([ms_kernels.INVALID], dtype=np.uint8)
+                ref_codes = np.concatenate(
+                    [ref_codes, sep, encode_ascii(revcomp_ascii(ref_seq))]
+                )
+            inner = ref_codes
+        else:
+            inner = build([ref_seq], opts.sbwt_build_opts)
+            assert inner.k == sbwt_query.k
+        variants = variant_calling.call_variants(
+            sbwt_query,  # -> call_variants' sbwt_ref slot
+            inner,  # -> its sbwt_query slot (an index or raw codes)
+            ref_seq,
+            opts.max_error_prob,
+            noisy_ms=noisy_ms,
+            ivals=ivals,
+            drops=drops,
+            anchors=anchors,
+            anchor_rows=anchor_rows,
+            device=device,
+        )
+    get_stats().add("variants_called", len(variants))
+    return variants
 
 
 def map_(ref_seq: bytes, query_sbwt: SbwtIndex,

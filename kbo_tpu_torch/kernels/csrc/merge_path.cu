@@ -38,9 +38,15 @@
 //       outputs j, j + 256, ..., so every global store is coalesced and each
 //       output word is written once.
 // Dynamic shared memory: 2048 * (W + 1) * 4 B of slabs plus 2048 * 2 B of
-// source indices (60 KB at W = 6: three CTAs per SM). The kernel is
-// templated on W for the main path's W = 4, 6, 7 (unrolled row loops); one
-// instantiation takes any other W up to kMaxW. Measured on an H100
+// source indices (60 KB at W = 6: three CTAs per SM). Above kMaxWFull key
+// rows the slabs of a 2048-output tile no longer fit the 232 448 B a block
+// may ask for (W = 27 would take 233 472 B), so such merges take tiles of
+// 1024 outputs, 4 a thread (116 736 B at W = 27): the interval probe at
+// k = 251..254 compares 26 key words and a rank row. The partition then
+// cuts the merge at 1024-output diagonals. The kernel is templated on W
+// for the main path's W = 4, 6, 7 (unrolled row loops); one instantiation
+// takes any other W up to kMaxWFull, and one the wide tiles up to kMaxW.
+// Measured on an H100
 // (PERF.md): about 60% of the byte bound at the find-core and map shapes;
 // tiles of 1024 or 4096 outputs, or 128 threads, were no faster.
 
@@ -50,13 +56,18 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 8;
-constexpr int kTile = kThreads * kItems;
-constexpr int kMaxW = 26;  // (W + 1) rows of slabs fit in 227 KB
+constexpr int kItems = 8;      // outputs a thread merges: 2048-output tiles
+constexpr int kItemsWide = 4;  // above kMaxWFull key rows: 1024-output tiles
+constexpr int kMaxWFull = 26;  // (W + 1) slabs of 2048 words fit in 227 KB
+constexpr int kMaxW = 27;      // the most key rows a caller passes
+
+constexpr int tile_of(int w) {
+  return kThreads * (w > kMaxWFull ? kItemsWide : kItems);
+}
 
 constexpr size_t smem_bytes(int w) {
-  return (size_t)kTile * (w + 1) * sizeof(uint32_t) +
-         (size_t)kTile * sizeof(uint16_t);
+  return (size_t)tile_of(w) * (w + 1) * sizeof(uint32_t) +
+         (size_t)tile_of(w) * sizeof(uint16_t);
 }
 
 // 4-byte copy from global to shared memory that holds no register while in
@@ -102,41 +113,44 @@ __device__ long long diagonal(const uint32_t* a, long long na,
 
 __global__ void partition_kernel(const uint32_t* a, long long na,
                                  const uint32_t* b, long long nb, int w,
-                                 long long n_tiles, long long* a_off) {
+                                 int tile, long long n_tiles,
+                                 long long* a_off) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i > n_tiles) return;
-  const long long t = min(i * kTile, na + nb);
+  const long long t = min(i * tile, na + nb);
   a_off[i] = diagonal(a, na, b, nb, w, t, max(0LL, t - nb), min(t, na));
 }
 
 // slab element y <lex slab element x over the key rows (shared memory; rows
-// kTile words apart)
-template <int WT>
+// TILE words apart)
+template <int WT, int TILE>
 __device__ __forceinline__ bool slab_lt(const uint32_t* slab, int y, int x,
                                         int w_rt) {
   const int w = WT > 0 ? WT : w_rt;
 #pragma unroll
   for (int c = 0; c < w; ++c) {
-    const uint32_t xv = slab[c * kTile + x];
-    const uint32_t yv = slab[c * kTile + y];
+    const uint32_t xv = slab[c * TILE + x];
+    const uint32_t yv = slab[c * TILE + y];
     if (yv != xv) return yv < xv;
   }
   return false;
 }
 
-// WT > 0: W fixed at compile time; WT == 0: W = w_rt (any W up to kMaxW)
-template <int WT>
+// WT > 0: W fixed at compile time; WT == 0: W = w_rt (any W whose slabs
+// fit). ITEMS outputs a thread, so tiles of TILE = kThreads * ITEMS.
+template <int WT, int ITEMS>
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(const uint32_t* a_keys, const uint32_t* a_pay, long long na,
              const uint32_t* b_keys, const uint32_t* b_pay, long long nb,
              int w_rt, const long long* a_off, uint32_t* out_keys,
              uint32_t* out_pay) {
-  extern __shared__ uint32_t slab[];  // [W + 1][kTile], then uint16 src
+  constexpr int TILE = kThreads * ITEMS;
+  extern __shared__ uint32_t slab[];  // [W + 1][TILE], then uint16 src
   const int w = WT > 0 ? WT : w_rt;
-  uint16_t* src = reinterpret_cast<uint16_t*>(slab + (w + 1) * kTile);
+  uint16_t* src = reinterpret_cast<uint16_t*>(slab + (w + 1) * TILE);
   const long long total = na + nb;
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const int n = (int)min((long long)kTile, total - t0);
+  const long long t0 = (long long)blockIdx.x * TILE;
+  const int n = (int)min((long long)TILE, total - t0);
   const long long a_lo = a_off[blockIdx.x];
   const long long b_lo = t0 - a_lo;
   const int n_a = (int)(a_off[blockIdx.x + 1] - a_lo);  // n - n_a from B
@@ -147,10 +161,10 @@ merge_kernel(const uint32_t* a_keys, const uint32_t* a_pay, long long na,
     const uint32_t* ar = c < w ? a_keys + c * na : a_pay;
     const uint32_t* br = c < w ? b_keys + c * nb : b_pay;
 #pragma unroll
-    for (int r = 0; r < kItems; ++r) {
+    for (int r = 0; r < ITEMS; ++r) {
       const int p = r * kThreads + threadIdx.x;
       if (p < n) {
-        cp_async4(slab + c * kTile + p,
+        cp_async4(slab + c * TILE + p,
                   p < n_a ? ar + a_lo + p : br + b_lo + p - n_a);
       }
     }
@@ -160,59 +174,60 @@ merge_kernel(const uint32_t* a_keys, const uint32_t* a_pay, long long na,
 
   // b. this thread's diagonal inside the slabs, then its outputs' sources
   const int n_b = n - n_a;
-  const int d = min((int)threadIdx.x * kItems, n);
+  const int d = min((int)threadIdx.x * ITEMS, n);
   int lo = max(0, d - n_b), hi = min(d, n_a);
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (slab_lt<WT>(slab, n_a + d - mid - 1, mid, w)) {
+    if (slab_lt<WT, TILE>(slab, n_a + d - mid - 1, mid, w)) {
       hi = mid;
     } else {
       lo = mid + 1;
     }
   }
   int ai = lo, bi = d - lo;
-  const int end = min(d + kItems, n);
+  const int end = min(d + ITEMS, n);
   for (int o = d; o < end; ++o) {
     const bool take_a =
-        bi >= n_b || (ai < n_a && !slab_lt<WT>(slab, n_a + bi, ai, w));
+        bi >= n_b || (ai < n_a && !slab_lt<WT, TILE>(slab, n_a + bi, ai, w));
     src[o] = (uint16_t)(take_a ? ai++ : n_a + bi++);
   }
   __syncthreads();
 
   // c. row by row, one output word per thread per store, coalesced
 #pragma unroll
-  for (int r = 0; r < kItems; ++r) {
+  for (int r = 0; r < ITEMS; ++r) {
     const int o = r * kThreads + threadIdx.x;
     if (o < n) {
       const int s = src[o];
 #pragma unroll
       for (int c = 0; c < w; ++c) {
-        out_keys[c * total + t0 + o] = slab[c * kTile + s];
+        out_keys[c * total + t0 + o] = slab[c * TILE + s];
       }
-      out_pay[t0 + o] = slab[w * kTile + s];
+      out_pay[t0 + o] = slab[w * TILE + s];
     }
   }
 }
 
-template <int WT>
+template <int WT, int ITEMS = kItems>
 cudaError_t launch_merge(const uint32_t* ak, const uint32_t* ap, long long na,
                          const uint32_t* bk, const uint32_t* bp, long long nb,
                          int w, const long long* a_off, uint32_t* ok,
                          uint32_t* op, long long n_tiles, cudaStream_t s) {
   const size_t smem = smem_bytes(w);
   cudaError_t err = cudaFuncSetAttribute(
-      merge_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      merge_kernel<WT, ITEMS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  merge_kernel<WT><<<(unsigned)n_tiles, kThreads, smem, s>>>(
+  merge_kernel<WT, ITEMS><<<(unsigned)n_tiles, kThreads, smem, s>>>(
       ak, ap, na, bk, bp, nb, w, a_off, ok, op);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" long long kbo_merge_path_tiles(long long na, long long nb) {
-  return (na + nb + kTile - 1) / kTile;
+// tiles of the merge of na + nb outputs at w key rows
+extern "C" long long kbo_merge_path_tiles(long long na, long long nb, int w) {
+  return (na + nb + tile_of(w) - 1) / tile_of(w);
 }
 
 extern "C" int kbo_merge_path_max_w() { return kMaxW; }
@@ -222,7 +237,7 @@ extern "C" long long kbo_merge_path_smem(int w) {
   return (long long)smem_bytes(w);
 }
 
-// a_off: scratch of kbo_merge_path_tiles(na, nb) + 1 int64. Returns the CUDA
+// a_off: scratch of kbo_merge_path_tiles(na, nb, w) + 1 int64. Returns the CUDA
 // error code of the launches (0 on success); does not synchronise.
 extern "C" int kbo_merge_path(const int32_t* a_keys, const int32_t* a_pay,
                               long long na, const int32_t* b_keys,
@@ -230,7 +245,7 @@ extern "C" int kbo_merge_path(const int32_t* a_keys, const int32_t* a_pay,
                               long long* a_off, int32_t* out_keys,
                               int32_t* out_pay, void* stream) {
   if (w < 0 || w > kMaxW) return (int)cudaErrorInvalidValue;
-  const long long n_tiles = kbo_merge_path_tiles(na, nb);
+  const long long n_tiles = kbo_merge_path_tiles(na, nb, w);
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ak = reinterpret_cast<const uint32_t*>(a_keys);
@@ -240,9 +255,13 @@ extern "C" int kbo_merge_path(const int32_t* a_keys, const int32_t* a_pay,
   auto* ok = reinterpret_cast<uint32_t*>(out_keys);
   auto* op = reinterpret_cast<uint32_t*>(out_pay);
   partition_kernel<<<(unsigned)((n_tiles + 1 + 255) / 256), 256, 0, s>>>(
-      ak, na, bk, nb, w, n_tiles, a_off);
+      ak, na, bk, nb, w, tile_of(w), n_tiles, a_off);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (w > kMaxWFull) {
+    return (int)launch_merge<0, kItemsWide>(ak, ap, na, bk, bp, nb, w, a_off,
+                                            ok, op, n_tiles, s);
+  }
   switch (w) {
     case 4:
       err = launch_merge<4>(ak, ap, na, bk, bp, nb, w, a_off, ok, op,

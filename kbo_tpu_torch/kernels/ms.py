@@ -30,6 +30,7 @@ import functools
 import numpy as np
 import torch
 
+from kbo_tpu_torch.index.encode import encode_ascii, revcomp_ascii
 from kbo_tpu_torch.index.sbwt import SbwtIndex
 from kbo_tpu_torch.kernels.join import _common_chunks, clamp_scan
 from kbo_tpu_torch.kernels.sort import (
@@ -198,12 +199,13 @@ def _clamp_both(sw, cap, bits: int):
 
 
 def _neighbor_best(ref_words, ref_cap, q_words, q_meta, bits: int,
-                   merge: str = "path"):
+                   merge: str = "path", ref_sorted: bool = True):
     """Best min(lcp, cap) of each query key against the reference keys.
 
-    ref_words: int32 [W, n] sorted key words; ref_cap: int32 [n] per-row caps
-    in chunk units (1..254); q_words/q_meta: int32 [W, L] query keys and
-    [L] identifiers (< 2**23). Returns int32 [L] >= 0 in q_meta order.
+    ref_words: int32 [W, n] key words (sorted when ``ref_sorted``);
+    ref_cap: int32 [n] per-row caps in chunk units (1..254);
+    q_words/q_meta: int32 [W, L] query keys and [L] identifiers (< 2**23).
+    Returns int32 [L] >= 0 in q_meta order.
 
     Source identity and the back-sort ride ONE uint32 payload:
     (slot24 << 8) | capbyte, with capbyte 0xFF marking query slots and
@@ -233,7 +235,8 @@ def _neighbor_best(ref_words, ref_cap, q_words, q_meta, bits: int,
         c = _clamp_both(sw, cap_s, bits)
         return c[torch.argsort(meta_s)][:L]
     sw, spacked, f, b = _merge_scan(
-        ref_words, ref_cap, q_words, q_meta, bits, merge=merge
+        ref_words, ref_cap, q_words, q_meta, bits, merge=merge,
+        ref_sorted=ref_sorted,
     )
     c = torch.clamp(torch.maximum(f, b), min=0)
     out_packed = (u32(spacked) & 0xFFFFFF00) | torch.clamp(c, max=255)
@@ -242,7 +245,8 @@ def _neighbor_best(ref_words, ref_cap, q_words, q_meta, bits: int,
 
 
 def _merge_scan(ref_words, ref_cap, q_words, q_meta, bits: int,
-                q_aux=None, ref_packed=None, merge: str = "path"):
+                q_aux=None, ref_packed=None, merge: str = "path",
+                ref_sorted: bool = True):
     """Packed merge + directional clamped-LCP scans.
 
     Packs reference and query slots into the single payload (see
@@ -265,10 +269,21 @@ def _merge_scan(ref_words, ref_cap, q_words, q_meta, bits: int,
     arrays stay padded to a power of two, and the pads (all-ones keys,
     payload 0xFFFFFFFF) run through the scans as non-source query slots with
     slot id 0xFFFFFF, which every back-to-order step drops.
+
+    ``ref_sorted=False`` takes reference keys in no order (a sequence's own
+    window keys): the reference and query slots are concatenated and go
+    through one stable radix sort, with no merge (kbo_tpu's concat branch;
+    ``merge`` and ``q_aux`` do not apply).
     """
     if ref_packed is None:
         ref_packed = to_i32(0xFFFFFF00 | u32(ref_cap))
     q_packed = to_i32((q_meta.to(torch.int64) << 8) | 0xFF)
+    if not ref_sorted:
+        sw, (spacked,) = _radix_sort(
+            torch.cat([ref_words, q_words], dim=1),
+            [torch.cat([ref_packed, q_packed])],
+        )
+        return (sw, spacked) + _scans(sw, spacked, bits)
     pays = [q_packed] if q_aux is None else [q_packed, q_aux]
     qs, qpays = _radix_sort(q_words, pays)
     if merge == "path":
@@ -283,13 +298,19 @@ def _merge_scan(ref_words, ref_cap, q_words, q_meta, bits: int,
         sw, spacked = merged[:W], merged[W]
     else:
         raise ValueError(f"merge must be 'path' or 'bitonic', not {merge!r}")
-    capbyte = spacked & 0xFF
-    cap = torch.where(capbyte == 0xFF, -1, capbyte)
-    f = clamp_scan(sw, cap, bits, reverse=False)
-    b = clamp_scan(sw, cap, bits, reverse=True)
+    f, b = _scans(sw, spacked, bits)
     if q_aux is not None:
         return sw, spacked, f, b, (qs, qpays[1])
     return sw, spacked, f, b
+
+
+def _scans(sw, spacked, bits: int):
+    """The forward and backward clamped-LCP scans over merged slots whose
+    payload's low byte is the cap (0xFF: a query slot, no source)."""
+    capbyte = spacked & 0xFF
+    cap = torch.where(capbyte == 0xFF, -1, capbyte)
+    return (clamp_scan(sw, cap, bits, reverse=False),
+            clamp_scan(sw, cap, bits, reverse=True))
 
 
 def ms2_core(keys2, cap2, buf, k: int, merge: str = "path"):
@@ -430,6 +451,154 @@ def ms3_rows_core(keys3, ref_packed, buf, k: int, want_qtable: bool = False,
     return ms, uniq, row
 
 
+def _intervals_from_keys(keys3, q_words, ms, merge: str = "path"):
+    """Colex intervals [l, r) of the length-ms prefixes of the given 3-bit
+    query keys, counted over ALL rows (dummies included -- the 3-bit key
+    space is the true colex order, so no dummy rank adjustment exists).
+    ms == 0 yields the empty-pattern interval [0, n_rows).
+
+    keys3: int32 [W, n] sorted table; q_words: int32 [W, P]; ms: [P].
+    Returns (l, r) int32 [P]. Each pattern becomes a floor probe (its
+    unmatched chunks cleared) and a ceil probe (set); one merge of the
+    probes into the table and a count of the rows before each probe give
+    the interval. The merge compares W + 1 key rows: the words, then a rank
+    row (floor 0, table 1, ceil 2) that puts a floor before equal table
+    keys (they belong to its interval) and, at ms == k, a ceil after the
+    row equal to the full pattern; the probe's slot rides as the payload.
+    ``merge="bitonic"`` merges with :func:`bitonic_merge` (kbo_tpu's
+    ``KBO_TPU_MERGE_PATH=0`` choice: W + 2 operand rows).
+    """
+    W, P = q_words.shape
+    n = keys3.shape[1]
+    device = q_words.device
+    w_off = 10 * torch.arange(W, dtype=torch.int64, device=device)[:, None]
+    keep = torch.clamp(ms.to(torch.int64)[None] - w_off, 0, 10)
+    ones = (1 << (30 - 3 * keep)) - 1
+    floors = u32(q_words) & ~ones
+    probe_keys = torch.cat([
+        to_i32(torch.cat([floors, floors | ones], dim=1)),
+        torch.cat([
+            torch.zeros((1, P), dtype=torch.int32, device=device),
+            torch.full((1, P), 2, dtype=torch.int32, device=device),
+        ], dim=1),
+    ])
+    # stable LSD keeps equal keys in slot order, so the probe side is
+    # sorted by (words, rank) as the merge requires
+    probe_keys, (probe_slot,) = _radix_sort(
+        probe_keys, [torch.arange(2 * P, dtype=torch.int32, device=device)]
+    )
+    ref_keys = torch.cat([
+        keys3, torch.ones((1, n), dtype=torch.int32, device=device)
+    ])
+    ref_slot = torch.full((n,), _BIG, dtype=torch.int32, device=device)
+    if merge == "path":
+        sk, sslot = merge_path(ref_keys, ref_slot, probe_keys, probe_slot)
+    elif merge == "bitonic":
+        merged = bitonic_merge(
+            torch.cat([ref_keys, ref_slot[None]]),
+            torch.cat([probe_keys, probe_slot[None]]),
+            W + 1,
+        )
+        sk, sslot = merged[: W + 1], merged[W + 1]
+    else:
+        raise ValueError(f"merge must be 'path' or 'bitonic', not {merge!r}")
+    is_ref = (sk[W] == 1).to(torch.int32)
+    before = torch.cumsum(is_ref, dim=0, dtype=torch.int32) - is_ref
+    # back to probe order: table slots (_BIG) and the bitonic merge's
+    # all-ones pads land in the spare entry 2P
+    dest = torch.clamp(u32(sslot), max=2 * P)
+    out = torch.zeros(2 * P + 1, dtype=torch.int32, device=device)
+    out.scatter_(0, dest, before)
+    return out[:P], out[P : 2 * P]
+
+
+def intervals3_core(keys3, buf, ms, k: int):
+    """Colex intervals [l, r) of each buffer position's matched suffix."""
+    return _intervals_from_keys(keys3, pack_windows_3bit(buf, k), ms)
+
+
+def intervals3_windows_core(keys3, windows, ms, k: int, merge: str = "path"):
+    """Full-row colex intervals for a [P, k] window matrix given its MS
+    values (from the value sweep -- never recomputed here).
+
+    The sparse interval path: the refinement layers (variant calling, gap
+    filling) only read intervals at data-dependent candidate positions.
+    """
+    P = windows.shape[0]
+    words_all = pack_windows_3bit(windows.reshape(-1), k, pad_chunk=7)
+    q_words = words_all.reshape(-1, P, k)[:, :, k - 1]
+    return _intervals_from_keys(keys3, q_words, ms, merge)
+
+
+def _intervals3_windows_msrow(keys3, windows, ms_row, pos, k: int):
+    """Sparse interval probe reading MS values from a device-resident row.
+
+    ms_row: int32 [L] query-coordinate MS values (never fetched whole);
+    pos: int32 [Pb] positions (pad entries clipped; their rows are INVALID
+    windows whose outputs the caller drops). Returns one stacked int32
+    [3, Pb] (l, r, ms_at), so the host pays a single fetch.
+    """
+    ms_at = ms_row[torch.clamp(pos, max=ms_row.shape[0] - 1).to(torch.int64)]
+    l, r = intervals3_windows_core(keys3, windows, ms_at, k)
+    return torch.stack([l, r, ms_at.to(torch.int32)])
+
+
+def intervals_at_positions_core(keys3, codes_row, ms_row, pos, k: int):
+    """(l, r, ms_at) colex-interval probe at device-resident positions.
+
+    codes_row: uint8 [L] resident code row; ms_row: int32 [L] resident MS
+    row; pos: int32 [P]. The [P, k] window matrix is gathered on the
+    device.
+    """
+    pos = pos.to(torch.int64)
+    ms_at = ms_row[torch.clamp(pos, max=ms_row.shape[0] - 1)]
+    idx = pos[:, None] + torch.arange(
+        -(k - 1), 1, dtype=torch.int64, device=pos.device
+    )[None, :]
+    windows = torch.where(
+        idx >= 0, codes_row[torch.clamp(idx, min=0)], INVALID
+    ).to(torch.uint8)
+    l, r = intervals3_windows_core(keys3, windows, ms_at, k)
+    return l, r, ms_at.to(torch.int32)
+
+
+def _intervals3_pos(keys3, codes_row, ms_row, pos, k: int):
+    """Sparse interval probe with device-side window assembly; one stacked
+    int32 [3, Pb] (l, r, ms_at) for a single fetch."""
+    return torch.stack(
+        intervals_at_positions_core(keys3, codes_row, ms_row, pos, k)
+    )
+
+
+def ms3_batch_vs_seq_core(ref_buf, q_codes, k: int):
+    """Per-position MS of a [Q, L] probe batch against a raw sequence.
+
+    The "index" side is the sequence's OWN window keys -- every position of
+    ref_buf, 3-bit packed with pad chunk 5, no sorting, dedup or host
+    construction (duplicates and $-padded partial windows do not change
+    best-match values, and chunk 5 reproduces '$' boundary semantics
+    exactly: it never matches a probe's real chars 1..4 nor the probe-side
+    pad 7). This is the reference's build-an-index-inside-call() pattern
+    (src/lib.rs:553) on the device: the variant caller's per-candidate
+    k-mer MS re-runs join directly against the reference sequence.
+    Returns ms int32 [Q, L].
+    """
+    ref_words = pack_windows_3bit(ref_buf, k, pad_chunk=5)
+    Q, L = q_codes.shape
+    pad = torch.full((Q, k - 1), INVALID, dtype=torch.uint8,
+                     device=q_codes.device)
+    qbuf = torch.cat([pad, q_codes], dim=1).reshape(-1)
+    q_words = pack_windows_3bit(qbuf, k, pad_chunk=7)
+    meta = torch.arange(qbuf.shape[0], dtype=torch.int32, device=qbuf.device)
+    cap = torch.full((ref_buf.shape[0],), k, dtype=torch.int32,
+                     device=qbuf.device)
+    # the sequence-side keys are NOT presorted: one sort of the
+    # concatenation, no merge shortcut
+    c = _neighbor_best(ref_words, cap, q_words, meta, bits=3,
+                       ref_sorted=False)
+    return torch.clamp(c, max=k).reshape(Q, L + k - 1)[:, k - 1 :]
+
+
 class DeviceIndex:
     """An SbwtIndex's sort-join tables resident on a device.
 
@@ -504,3 +673,91 @@ def query_ms_values_device(index, codes: np.ndarray, device=None):
     buf, L = make_flat_buffer(np.asarray(codes), dev.k)
     ms = ms2_core(dev.keys2, dev.cap2, torch.from_numpy(buf).to(dev.device), dev.k)
     return ms[dev.k - 1 : dev.k - 1 + L].cpu().numpy().astype(np.int64)
+
+
+def query_ms_row_device(index, codes: np.ndarray, device=None):
+    """Device-resident int32 MS row [L] of one encoded query (2-bit join),
+    never fetched: callers that only need sparse reads (drop detection,
+    interval probes) fetch compacted results instead of the full vector.
+    ``index`` is a :class:`DeviceIndex` or an :class:`SbwtIndex` to upload
+    to ``device``."""
+    dev = index if isinstance(index, DeviceIndex) else DeviceIndex(index, device)
+    buf, L = make_flat_buffer(np.asarray(codes), dev.k)
+    ms = ms2_core(dev.keys2, dev.cap2, torch.from_numpy(buf).to(dev.device),
+                  dev.k)
+    return ms[dev.k - 1 : dev.k - 1 + L]
+
+
+def ms_drops_device(ms_row, d: int) -> np.ndarray:
+    """Drop positions (int64, ascending, on the host) of a device MS row:
+    i >= 1 with ms[i] < ms[i-1], ms[i-1] >= d and ms[i] < d, the
+    reference's variant-start signal (src/variant_calling.rs:269). One mask
+    and one ``torch.nonzero`` on the device; only the positions cross."""
+    prev, cur = ms_row[:-1], ms_row[1:]
+    mask = (cur < prev) & (prev >= d) & (cur < d)
+    return torch.nonzero(mask).flatten().cpu().numpy().astype(np.int64) + 1
+
+
+# ------------------------------------------------- device-built seq index
+
+
+def _seq_keys3(buf, k: int):
+    """Sorted 3-bit window keys of a sequence buffer + the count of its
+    distinct full k-mers (int32 scalar tensor). The 'index' is the
+    sequence's own window keys (pad chunk 5, see
+    :func:`ms3_batch_vs_seq_core`), sorted so that queries take the merge;
+    duplicates stay (they do not change best-match values)."""
+    words = pack_windows_3bit(buf, k, pad_chunk=5)
+    # a window is full iff its valid run reaches k (window_limits uses the
+    # doubling cummax, not torch.cummax)
+    full = (window_limits(buf, k) == k).to(torch.int32)
+    sw, (sfull,) = _radix_sort(words, [full])
+    prev = torch.cat([sw[:, :1] ^ 1, sw[:, :-1]], dim=1)
+    neq = (sw != prev).any(dim=0)
+    return sw, (neq & (sfull == 1)).sum(dtype=torch.int32)
+
+
+class DeviceSeqIndex:
+    """An ephemeral, device-built find index: the sequences' sorted 3-bit
+    window keys. No host SBWT construction -- for one-shot ``find`` runs
+    where building the full index dominates wall time. Supports the MS
+    value path only (find/matches); map/call refinement needs the full
+    :class:`SbwtIndex`.
+    """
+
+    def __init__(self, seqs: list[bytes], k: int, add_revcomp: bool = False,
+                 device=None):
+        if not seqs:
+            raise ValueError("cannot build an index from empty input")
+        parts = []
+        sep = np.array([INVALID], dtype=np.uint8)
+        for s in seqs:
+            s = bytes(s)
+            parts += [encode_ascii(s), sep]
+            if add_revcomp:
+                parts += [encode_ascii(revcomp_ascii(s)), sep]
+        buf, _ = make_flat_buffer(np.concatenate(parts[:-1]), k)
+        self.device = resolve_device(device)
+        self.ref_words, n_kmers = _seq_keys3(
+            torch.from_numpy(buf).to(self.device), k
+        )
+        self.n_kmers = int(n_kmers)
+        self.k = k
+
+
+def ms3_values_vs_sorted_seq_core(ref_words, codes, k: int):
+    """Per-position MS of a [Q, L] batch against sorted sequence keys
+    (:class:`DeviceSeqIndex`): the merge path at bits = 3.
+
+    Tail-pad positions hold garbage; callers mask by length downstream
+    (the derandomize pass reads only the true length)."""
+    Q, L = codes.shape
+    pad = torch.full((Q, k - 1), INVALID, dtype=torch.uint8,
+                     device=codes.device)
+    buf = torch.cat([pad, codes], dim=1).reshape(-1)
+    q_words = pack_windows_3bit(buf, k, pad_chunk=7)
+    meta = torch.arange(buf.shape[0], dtype=torch.int32, device=buf.device)
+    cap = torch.full((ref_words.shape[1],), k, dtype=torch.int32,
+                     device=buf.device)
+    c = _neighbor_best(ref_words, cap, q_words, meta, bits=3)
+    return torch.clamp(c, max=k).reshape(Q, L + k - 1)[:, k - 1 :]

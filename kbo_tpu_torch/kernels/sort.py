@@ -82,7 +82,7 @@ def merge_path_plain(a_keys, a_pay, b_keys, b_pay):
 def _lib():
     lib = _build.load("merge_path")
     p, n = ctypes.c_void_p, ctypes.c_longlong
-    lib.kbo_merge_path_tiles.argtypes = [n, n]
+    lib.kbo_merge_path_tiles.argtypes = [n, n, ctypes.c_int]
     lib.kbo_merge_path_tiles.restype = n
     lib.kbo_merge_path_max_w.restype = ctypes.c_int
     lib.kbo_merge_path_smem.argtypes = [ctypes.c_int]
@@ -112,7 +112,8 @@ def merge_path(a_keys, a_pay, b_keys, b_pay):
     a_keys/b_keys: int32 ``[W, n]`` key words sorted lexicographically;
     a_pay/b_pay: int32 ``[n]`` payloads. Returns (keys ``[W, na+nb]``,
     payload ``[na+nb]``). CUDA tensors launch ``csrc/merge_path.cu`` (at
-    most 26 key rows: the rows of a tile share one CTA's shared memory);
+    most 27 key rows: the rows of a tile share one CTA's shared memory,
+    and above 26 the tiles are half as long);
     CPU tensors take :func:`merge_path_plain`. Unlike kbo_tpu's
     operand-list form, the output carries no tile pads.
     """
@@ -132,7 +133,8 @@ def merge_path(a_keys, a_pay, b_keys, b_pay):
     out_keys = torch.empty((W, na + nb), dtype=torch.int32, device=device)
     out_pay = torch.empty(na + nb, dtype=torch.int32, device=device)
     a_off = torch.empty(
-        lib.kbo_merge_path_tiles(na, nb) + 1, dtype=torch.int64, device=device
+        lib.kbo_merge_path_tiles(na, nb, W) + 1, dtype=torch.int64,
+        device=device,
     )
     with torch.cuda.device(device):
         err = lib.kbo_merge_path(

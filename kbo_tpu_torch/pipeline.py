@@ -4,8 +4,9 @@
 The throughput (``find``/``matches``) hot path: a [Q, L] batch of padded
 queries goes in; alignment characters and MS values come out with no host
 round trips between stages. MS comes from the sort-join engine
-(kbo_tpu_torch.kernels.ms); derandomize/translate/RLE from
-kbo_tpu_torch.kernels.postprocess.
+(kbo_tpu_torch.kernels.ms): the 2-bit join against an index, or the 3-bit
+join against a device-built sequence index (``*_seq``);
+derandomize/translate/RLE from kbo_tpu_torch.kernels.postprocess.
 """
 
 from __future__ import annotations
@@ -14,7 +15,12 @@ import numpy as np
 import torch
 
 from kbo_tpu_torch.index.sbwt import SbwtIndex
-from kbo_tpu_torch.kernels.ms import INVALID, _bucket as _kernel_bucket, ms2_core
+from kbo_tpu_torch.kernels.ms import (
+    INVALID,
+    _bucket as _kernel_bucket,
+    ms2_core,
+    ms3_values_vs_sorted_seq_core,
+)
 from kbo_tpu_torch.kernels.postprocess import (
     derandomize_translate,
     rle_segments_global_core,
@@ -146,3 +152,33 @@ def find_rle_batch(index: SbwtIndex, code_list: list[np.ndarray],
     semantics): the full chars array never leaves the device."""
     chars, _ms, lengths_dev = _run_pipeline(index, code_list, threshold, device)
     return _rle_from_device_chars(chars, lengths_dev)
+
+
+def _run_pipeline_seq(dev_index, code_list, threshold: int):
+    """chars [Q, L] and lengths on the device against a
+    :class:`kbo_tpu_torch.kernels.ms.DeviceSeqIndex`."""
+    codes, lengths = pad_batch(code_list, bucket=True)
+    lengths_dev = torch.from_numpy(lengths).to(dev_index.device)
+    ms = ms3_values_vs_sorted_seq_core(
+        dev_index.ref_words, torch.from_numpy(codes).to(dev_index.device),
+        dev_index.k,
+    )
+    return derandomize_translate(ms, dev_index.k, threshold, lengths_dev), \
+        lengths_dev
+
+
+def matches_batch_seq(dev_index, code_list: list[np.ndarray],
+                      threshold: int) -> list[np.ndarray]:
+    """Translated alignment chars (uint8 arrays) for a batch of queries
+    against a device-built sequence index (the index-free find path)."""
+    chars, _ = _run_pipeline_seq(dev_index, code_list, threshold)
+    chars = chars.cpu().numpy()
+    return [chars[i, : c.size] for i, c in enumerate(code_list)]
+
+
+def find_rle_batch_seq(dev_index, code_list: list[np.ndarray], threshold: int):
+    """Device-RLE find (max_gap_len == 0) against a device-built sequence
+    index."""
+    return _rle_from_device_chars(
+        *_run_pipeline_seq(dev_index, code_list, threshold)
+    )

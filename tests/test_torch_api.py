@@ -23,8 +23,9 @@ def _rows(rles):
 
 def test_exports():
     assert set(kbo_tpu_torch.__all__) == {
-        "BuildOpts", "FindOpts", "MapOpts", "MatchOpts", "RLE", "build",
-        "find", "find_batch", "map_", "map_batch", "matches",
+        "BuildOpts", "CallOpts", "FindOpts", "MapOpts", "MatchOpts", "RLE",
+        "Variant", "build", "call", "find", "find_batch", "map_",
+        "map_batch", "matches",
     }
 
 

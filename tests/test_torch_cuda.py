@@ -111,13 +111,14 @@ def _merge_corner(rng, W, case, device):
             torch.zeros((W, 3 * T - 250), dtype=torch.int32, device=device))
 
 
-@pytest.mark.parametrize("W", [2, 4, 6, 7])
+@pytest.mark.parametrize("W", [2, 4, 6, 7, 27])
 @pytest.mark.parametrize("case", ["ragged", "a_empty", "b_empty",
                                   "a_before_b", "b_before_a", "all_equal"])
 def test_merge_path_tile_corners(cuda, W, case):
     """Tiles whose A or B part is empty, the last partial tile, one side
     wholly before the other, all-equal keys across six tiles; W = 2 takes
-    the runtime-W instantiation."""
+    the runtime-W instantiation, W = 27 (the interval probe at k = 254) the
+    half-length tiles."""
     rng = np.random.default_rng(W * 10 + len(case))
     a, b = _merge_corner(rng, W, case, cuda)
     na, nb = a.shape[1], b.shape[1]
@@ -171,13 +172,14 @@ def test_clamp_scan_repeat(cuda):
 
 
 def test_merge_scan_reject_wide_keys(cuda):
-    """More key rows than the shared-memory slabs hold raise."""
-    keys = torch.zeros((27, 10), dtype=torch.int32, device=cuda)
+    """More key rows than the shared-memory slabs hold raise: 28 for the
+    merge (27 take its half-length tiles), 27 for the scan."""
     pay = torch.zeros(10, dtype=torch.int32, device=cuda)
+    keys = torch.zeros((28, 10), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="key rows"):
         merge_path(keys, pay, keys, pay)
     with pytest.raises(ValueError, match="key rows"):
-        clamp_scan(keys, pay, 2, False)
+        clamp_scan(keys[:27], pay, 2, False)
 
 
 def test_find_batch_on_card_equals_cpu(cuda):
@@ -423,3 +425,124 @@ def test_default_map_on_card_equals_cpu(cuda, fmt):
         # the sweep's join and the variant join
         assert merge_path.launches == 2 and clamp_scan.launches == 4
         assert got == kbo_tpu_torch.map_batch(refs, idx, opts, device="cpu")
+
+
+def _call_pair(n=8000):
+    """tests/test_variant_calling.py::test_call_vs_seq_device_path's pair."""
+    rng = np.random.default_rng(21)
+    query = BASES[rng.integers(0, 4, n)].tobytes()
+    ref = bytearray(query)
+    ref[2000] = BASES[(np.frombuffer(query[2000:2001], np.uint8)[0] % 4 + 1)
+                      % 4]
+    del ref[5000:5002]
+    ref[6500:6500] = b"TT"
+    return query, bytes(ref)
+
+
+@pytest.mark.parametrize("k,add_revcomp", [(51, False), (51, True),
+                                           (254, False)])
+def test_call_on_card_equals_cpu(cuda, k, add_revcomp):
+    """call on the card (drop scan, interval rounds, the vs-sequence join)
+    gives the CPU run's variants; every merge and scan ran as a kernel."""
+    query, ref = _call_pair()
+    bo = kbo_tpu_torch.BuildOpts(k=k, build_select=True,
+                                 add_revcomp=add_revcomp)
+    idx = kbo_tpu_torch.build([query], bo)
+    opts = kbo_tpu_torch.CallOpts(sbwt_build_opts=bo)
+    merge_path.launches = clamp_scan.launches = 0
+    got = kbo_tpu_torch.call(idx, ref, opts, device=cuda)
+    # the row's join, >= 1 interval round, the two phase-3 batches
+    assert merge_path.launches >= 3 and clamp_scan.launches >= 6
+    want = kbo_tpu_torch.call(idx, ref, opts, device="cpu")
+    assert [(v.query_pos, v.query_chars, v.ref_chars) for v in got] == [
+        (v.query_pos, v.query_chars, v.ref_chars) for v in want]
+    assert len(got) == 3
+
+
+def _probe_windows(k, seed=51):
+    rng = np.random.default_rng(seed)
+    genome = BASES[rng.integers(0, 4, 30_000)].tobytes()
+    q = bytearray(genome[1000:21_000])
+    for p in rng.integers(0, len(q), 40):
+        q[p] = BASES[rng.integers(0, 4)]
+    idx = kbo_tpu_torch.build([genome], kbo_tpu_torch.BuildOpts(k=k))
+    codes = encode_ascii(bytes(q))
+    pos = np.sort(rng.choice(len(q), 3000, replace=False))
+    padded = np.full(codes.size + k - 1, 255, dtype=np.uint8)
+    padded[k - 1:] = codes
+    win = torch.from_numpy(padded[pos[:, None] + np.arange(k)[None, :]])
+    ms = torch.from_numpy(rng.integers(0, k + 1, pos.size).astype(np.int32))
+    return idx, win, ms
+
+
+@pytest.mark.parametrize("k", [51, 254])
+def test_interval_probe_on_card(cuda, k):
+    """The interval merge (W + 1 = 7 and 27 key rows) on the card equals
+    the CPU's; merge="bitonic" (W + 2 operand rows) equals it at k = 51
+    and raises past the bitonic kernels' 17 rows at k = 254."""
+    from kbo_tpu_torch.kernels.ms import intervals3_windows_core
+
+    idx, win, ms = _probe_windows(k)
+    keys_cpu = device_index(idx, "cpu").keys3
+    keys = device_index(idx, cuda).keys3
+    want = intervals3_windows_core(keys_cpu, win, ms, k)
+    before = merge_path.launches
+    got = intervals3_windows_core(keys, win.to(cuda), ms.to(cuda), k)
+    torch.cuda.synchronize()
+    assert merge_path.launches == before + 1
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    if k == 51:
+        bit = intervals3_windows_core(keys, win.to(cuda), ms.to(cuda), k,
+                                      merge="bitonic")
+        assert all(torch.equal(b.cpu(), w) for b, w in zip(bit, want))
+    else:
+        with pytest.raises(ValueError, match="17"):
+            intervals3_windows_core(keys, win.to(cuda), ms.to(cuda), k,
+                                    merge="bitonic")
+
+
+@pytest.mark.parametrize("k", [51, 254])
+def test_vs_seq_join_on_card(cuda, k):
+    """The concat-sorted vs-sequence join (bits = 3, W = 6 and 26) on the
+    card equals the CPU's, two scans and no merge."""
+    from kbo_tpu_torch.engine import compute_ms_values_vs_seq_device
+
+    rng = np.random.default_rng(k)
+    ref_codes = encode_ascii(BASES[rng.integers(0, 4, 50_000)].tobytes())
+    kmers = [ref_codes[s:s + k].copy() for s in rng.integers(0, 49_000, 300)]
+    for km in kmers[::3]:
+        km[rng.integers(0, k)] = 1 + (km[0] % 4)
+    before = (merge_path.launches, clamp_scan.launches)
+    got = compute_ms_values_vs_seq_device(ref_codes, kmers, k, cuda)
+    torch.cuda.synchronize()
+    assert (merge_path.launches, clamp_scan.launches) == (
+        before[0], before[1] + 2)
+    want = compute_ms_values_vs_seq_device(ref_codes, kmers, k, "cpu")
+    assert torch.equal(got.cpu()[:, :k], want[:, :k])
+
+
+@pytest.mark.parametrize("add_revcomp", [False, True])
+def test_find_batch_device_seq_index_on_card(cuda, add_revcomp):
+    """find_batch against build_device's sequence index on the card: one
+    merge, two scans, one derandomize_translate; equal to the CPU run."""
+    from kbo_tpu_torch import api
+
+    rng = np.random.default_rng(9)
+    genome = BASES[rng.integers(0, 4, 40_000)].tobytes()
+    queries = []
+    for s in rng.integers(0, 39_000, 32):
+        q = bytearray(genome[s : s + 900])
+        for p in rng.integers(0, len(q), 5):
+            q[p] = BASES[rng.integers(0, 4)]
+        queries.append(bytes(q))
+    bo = kbo_tpu_torch.BuildOpts(k=31, add_revcomp=add_revcomp)
+    gpu_index = api.build_device([genome], bo, device=cuda)
+    cpu_index = api.build_device([genome], bo, device="cpu")
+    assert gpu_index.n_kmers == cpu_index.n_kmers
+    assert torch.equal(gpu_index.ref_words.cpu(), cpu_index.ref_words)
+    merge_path.launches = clamp_scan.launches = 0
+    derandomize_translate.launches = 0
+    got = kbo_tpu_torch.find_batch(queries, gpu_index)
+    assert (merge_path.launches, clamp_scan.launches,
+            derandomize_translate.launches) == (1, 2, 1)
+    assert got == kbo_tpu_torch.find_batch(queries, cpu_index)

@@ -80,10 +80,18 @@ def _diagonals(a, b, t, lo, hi):
     return lo
 
 
+def _merge_items(W):
+    """Outputs a thread merges at W key rows: kItems, or kItemsWide above
+    kMaxWFull (half-length tiles, so that W + 1 slabs fit)."""
+    assert W <= MERGE["kMaxW"]
+    return MERGE["kItemsWide"] if W > MERGE["kMaxWFull"] else MERGE["kItems"]
+
+
 def _merge_emulated(a_keys, a_pay, b_keys, b_pay):
-    T, nthr, items = MERGE["kTile"], MERGE["kThreads"], MERGE["kItems"]
-    assert T == nthr * items and T <= 1 << 16  # 16-bit source indices
     W = a_keys.shape[0]
+    nthr, items = MERGE["kThreads"], _merge_items(W)
+    T = nthr * items
+    assert T <= 1 << 16  # 16-bit source indices
     ak = np.concatenate([a_keys.numpy().astype(np.int64) & U32,
                          a_pay.numpy()[None].astype(np.int64)])
     bk = np.concatenate([b_keys.numpy().astype(np.int64) & U32,
@@ -147,14 +155,15 @@ def _merge_case(a_keys, b_keys):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("W", [4, 6, 7])
+@pytest.mark.parametrize("W", [4, 6, 7, 27])
 @pytest.mark.parametrize("case", ["ragged", "a_empty", "b_empty",
                                   "a_before_b", "b_before_a", "all_equal"])
 def test_merge_tiles_equal_plain(W, case):
     """Bit-equal to the plain merge: a total that the tile does not
     divide, na = 0, nb = 0, one side entirely before the other, and
-    all-equal keys across more than five tiles (stability: A first)."""
-    T = MERGE["kTile"]
+    all-equal keys across more than five tiles (stability: A first). W = 27
+    (the interval probe at k = 251..254) takes the half-length tiles."""
+    T = MERGE["kThreads"] * _merge_items(W)
     rng = np.random.default_rng(W * 10 + len(case))
     if case == "ragged":
         a, b = _sorted(rng, W, 2 * T + 333), _sorted(rng, W, T + 71)
@@ -172,6 +181,18 @@ def test_merge_tiles_equal_plain(W, case):
         b = _sorted(rng, W, 3 * T - 250, alphabet=1)
         assert (a.shape[1] + b.shape[1]) // T >= 5
     _merge_case(a, b)
+
+
+@pytest.mark.parametrize("W", [4, 6, 7, 26, 27])
+def test_merge_slabs_fit_a_block(W):
+    """A tile's W + 1 slabs and its 16-bit source indices fit the 232 448 B
+    of shared memory a Hopper block may ask for; at W = 27 the full-length
+    tile would not, which is why it takes the half-length one."""
+    tile = MERGE["kThreads"] * _merge_items(W)
+    assert tile * (W + 1) * 4 + tile * 2 <= 232_448
+    full = MERGE["kTile"]
+    assert (full * (W + 1) * 4 + full * 2 <= 232_448) == (
+        W <= MERGE["kMaxWFull"])
 
 
 def test_merge_tiles_few_keys():
