@@ -11,8 +11,10 @@ Phases, each printed as it passes; any failure exits non-zero:
    kbo_tpu_torch/_build (or loads them from there), prints each kernel's
    registers and spills as ptxas reported them (bitonic.cu's up to 17
    operand rows, derand_translate.cu's two forms) and the dynamic shared
-   memory per CTA of merge_path.cu and clamp_scan.cu by W;
-   then the reference's golden MS vector and matches doctest on the card;
+   memory per CTA of merge_path.cu and clamp_scan.cu by W; builds the
+   native host library (kbo_tpu_torch/native_src, g++) and prints its build
+   time; then the reference's golden MS vector and matches doctest on the
+   card;
 3. kernels: merge_path, clamp_scan (bits 2 and 3, both directions),
    derandomize_translate, bitonic_merge and bitonic_sort against their plain
    PyTorch versions on the card, bit-exact, at the find and map shapes (the
@@ -45,7 +47,8 @@ Phases, each printed as it passes; any failure exits non-zero:
    MapOpts() (gap filling and variant calling on the card), format true and
    false, and one 8-contig api.map_batch (the tagged variant join); then the
    same with MapOpts(fill_gaps=False, call_variants=False), and the chunked
-   sweep against the single-shot one; launch counts read around each
+   sweep (and its chunk-by-chunk upload) against the single-shot one;
+   launch counts read around each
    entry-point call alone; outputs must equal the port's own device="cpu"
    run byte for byte;
 6. the call slice on the same pair: api.call at k=51 over the whole pair
@@ -65,13 +68,30 @@ Phases, each printed as it passes; any failure exits non-zero:
    derandomize_translate at its batch; the interval probe with
    merge="bitonic" against merge="path", and that bitonic merge) against
    their plain versions, bit for bit;
-7. times on the card (CUDA events or the host clock, medians of 7; by
+6b. the native pack against its numpy form at full width; api.build_device(
+   full=True) over the indexed side, its tables against the host build's
+   (keys3[:, :n_rows], n_rows, n_kmers, C, rows' k-mers, the sentinel
+   tail), then find_batch, map_ with MapOpts() and call against it, each
+   equal to the same call against the host-built index, with launch
+   counts; its membership probe (member_widths) against the host index's
+   binary search; the kernels at its sentinel-tailed shapes against their
+   plain versions; the interval gap path (fill_gaps over SparseIntervals
+   of the card-resident MS row) on a 400 kbase slice against the CPU run
+   and map_ with gap filling alone; the command line in-process on the
+   pair written as FASTA (call, find, find --device-index, map, build -o
+   then find -i), each verb's output equal to the rows formatted from the
+   API's results;
+7. times on the card (CUDA events or the host clock, medians of 7, of 3
+   for gap filling's host numpy at full width; by
    stage, the refinement's stages and the per-index extension table
    included; call by the host clock around it and by phase from the run's
    stats, its device stages alone, find_batch against build_device's index
    beside the full index; merge_path, clamp_scan and derandomize_translate
    also per call in runs of 10 back-to-back calls; derandomize_translate's
-   two forms by device time at 1 to 32 tiles a row), each with the card's
+   two forms by device time at 1 to 32 tiles a row; the native pack beside
+   the numpy one; the device-built full index's build and its calls beside
+   their host-index twins; gap filling at full width from intervals beside
+   the device grid's, patch for patch; each CLI verb), each with the card's
    name and power limit, then one torch.profiler run of each workload (and
    of one bitonic merge and one bitonic sort, by pass kind): device busy
    share and the kernels that take the time; and one of a
@@ -85,11 +105,15 @@ Prints the per-kernel JSON line, then as the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -155,10 +179,12 @@ def main() -> int:
     import torch
 
     from kbo_tpu_torch import BuildOpts, CallOpts, FindOpts, MapOpts, api
+    from kbo_tpu_torch import cli as cli_mod
     from kbo_tpu_torch import engine as engine_mod
+    from kbo_tpu_torch import native
     from kbo_tpu_torch import pipeline as pipeline_mod
     from kbo_tpu_torch.engine import compute_ms_values_many_device, device_index
-    from kbo_tpu_torch.index.encode import encode_ascii
+    from kbo_tpu_torch.index.encode import encode_ascii, revcomp_ascii
     from kbo_tpu_torch.kernels import _build
     from kbo_tpu_torch.kernels.join import _lib as join_lib
     from kbo_tpu_torch.kernels.join import clamp_scan, clamp_scan_plain
@@ -208,6 +234,7 @@ def main() -> int:
     )
     from kbo_tpu_torch.ops.derandomize import random_match_threshold
     from kbo_tpu_torch.pipeline import pad_batch
+    from kbo_tpu_torch.refine import gap_filling
     from kbo_tpu_torch.refine.device_map import _pow2_cap, map_devref_finish
     from kbo_tpu_torch.utils.stats import get_stats, reset_stats
 
@@ -233,6 +260,12 @@ def main() -> int:
     sort_lib(), join_lib(), post_lib(), _bitonic_lib()
     print(f"build: merge_path, clamp_scan, derand_translate, bitonic "
           f"compiled/loaded in {time.perf_counter() - t0:.1f}s (nvcc "
+          f"{secs:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    secs = native.build()
+    native.lib()
+    print(f"build: the native host library (native_src/pack.cpp, fastx.cpp) "
+          f"compiled/loaded in {time.perf_counter() - t0:.1f}s (g++ "
           f"{secs:.1f}s)", flush=True)
     for src in ("merge_path", "clamp_scan", "bitonic", "derand_translate"):
         for name, regs, stack, st, ld in _ptxas_summary(
@@ -886,6 +919,23 @@ def main() -> int:
           f"single-shot sweep over {Lm} positions ({int(uq.sum())} unique)",
           flush=True)
     del chunked
+    # the chunked sweep's own upload (pack, ship, decode and sweep chunk by
+    # chunk) against the one-shot upload and the single-shot sweep
+    ref_mat = np.zeros((1, Lm), dtype=np.uint8)
+    ref_mat[0, :n] = np.frombuffer(ref, dtype=np.uint8)
+    seq_lens = np.asarray([n], dtype=np.int32)
+    piped = mapsweep.upload_sweep_chunked_pipelined(
+        dev.keys3, dev.rows_packed, ref_mat, seq_lens, K, 1_000_000)
+    if piped is None or not (
+            torch.equal(piped[0].cpu(), torch.from_numpy(ref_mat))
+            and torch.equal(piped[1], mcodes)
+            and torch.equal(piped[2], single[0]) and torch.equal(piped[3], uq)
+            and torch.equal(piped[4][uq], single[2][uq])):
+        raise SystemExit("FAIL upload_sweep_chunked_pipelined (1 Mbase "
+                         "chunks) differs from the one-shot upload and sweep")
+    print("map upload: chunk-by-chunk pack + upload + sweep equals the "
+          "one-shot upload and the single-shot sweep", flush=True)
+    del piped
 
     t0 = time.perf_counter()
     for fmt in (True, False):
@@ -1094,6 +1144,245 @@ def main() -> int:
     del got, iv_bit, iv_path
     vs_seq_in = call_args["compute_ms_values_vs_seq_device"][0]
 
+    # ---- 6b. the native pack, the device-built full index, the interval
+    # gap path and the command line
+    t0 = time.perf_counter()
+    pk_native = mapsweep.pack_ascii_host(ref_mat, seq_lens)
+    t_pk_native = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pk_plain = mapsweep.pack_ascii_plain(ref_mat, seq_lens)
+    t_pk_plain = (time.perf_counter() - t0) * 1e3
+    if pk_native is None or not all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for a, b in zip(pk_native, pk_plain)):
+        raise SystemExit("FAIL the native pack differs from the numpy pack")
+    print(f"native pack: {n} bases, packed bases and the exception list "
+          f"({int((pk_native[1] < Lm).sum())} exceptions, padded to "
+          f"{pk_native[1].size}) equal the numpy pack; first calls: native "
+          f"{t_pk_native:.3f} ms, numpy {t_pk_plain:.3f} ms (host clock)",
+          flush=True)
+    del pk_native, pk_plain
+
+    # build_device(full=True) over the indexed side: its tables against
+    # the host build, then find_batch / map_ / call against it, each equal
+    # to the same call against the host-built index
+    t0 = time.perf_counter()
+    full = api.build_device([query], BuildOpts(k=K, build_select=True),
+                            full=True, device=cuda)
+    torch.cuda.synchronize()
+    t_build_full = (time.perf_counter() - t0) * 1e3
+    k3 = full.keys3.cpu().numpy().view(np.uint32)
+    nr = full.n_rows
+    if (nr, full.n_kmers) != (index.n_rows, index.n_kmers) \
+            or not np.array_equal(full.C, index.C) \
+            or not np.array_equal(k3[:, :nr], np.asarray(index.keys3)) \
+            or not (k3[:, nr:] == _U32).all() \
+            or not bool((full.row_pos[nr:] == -1).all()):
+        raise SystemExit("FAIL build_device(full=True) tables differ from the "
+                         "host build")
+    del k3
+    rows_p = np.random.default_rng(5).integers(0, nr, 4096)
+    if not np.array_equal(full.access_kmers_codes(rows_p),
+                          index.access_kmers_codes(rows_p)):
+        raise SystemExit("FAIL DeviceFullIndex.access_kmers_codes differs "
+                         "from the host index")
+    print(f"build_device(full=True): {nr} rows ({full.keys3.shape[1] - nr} "
+          f"sentinel rows after them), {full.n_kmers} k-mers, C "
+          f"{full.C.tolist()}: keys3[:, :n_rows], n_rows, n_kmers, C and "
+          f"4096 rows' k-mers equal the host build; {t_build_full:.1f} ms "
+          f"(first call, host clock)", flush=True)
+
+    full_names = [(ms_mod, "merge_path"), (ms_mod, "clamp_scan"),
+                  (pipeline_mod, "derandomize_translate")]
+    reset_counts()
+    rle_full, fb_args = capture(
+        lambda: api.find_batch(q_list, full, FindOpts()), full_names)
+    launches["find_batch DeviceFullIndex"] = read_counts(
+        "find_batch DeviceFullIndex")
+    if rle_full != rle_gpu:
+        raise SystemExit("FAIL find_batch against the device-built full index "
+                         "differs from the host index's")
+    reset_counts()
+    reset_stats()
+    dmap_full, fm_args = capture(lambda: api.map_(ref, full, dopts(True)),
+                                 full_names[:2])
+    launches["map_ DeviceFullIndex"] = read_counts("map_ DeviceFullIndex",
+                                                   TWO_JOINS)
+    if dmap_full != dmap_gpu[True]:
+        raise SystemExit("FAIL map_ MapOpts() against the device-built full "
+                         "index differs from the host index's")
+    reset_counts()
+    reset_stats()
+    call_full = api.call(full, ref, copts())
+    rounds_full = get_stats().as_dict()["call_anchor_rounds"]
+    launches["call DeviceFullIndex"] = read_counts(
+        "call DeviceFullIndex", {**CALL, "merge_path": 2 + rounds_full})
+    if tuples(call_full) != tuples(call_gpu):
+        raise SystemExit("FAIL call against the device-built full index "
+                         "differs from the host index's")
+    print(f"against build_device(full=True): find_batch[{QN}x{QL}], map_ "
+          f"MapOpts() and call (CallOpts(k={K}), {len(call_full)} variants) "
+          f"equal the host-built index's; launches per call "
+          f"{json.dumps({p: launches[p] for p in ('find_batch DeviceFullIndex', 'map_ DeviceFullIndex', 'call DeviceFullIndex')})}",
+          flush=True)
+
+    # the membership probe on the card against the host index's binary
+    # search (the CPU's answer): rows' k-mers and one-base mutants
+    gm = np.random.default_rng(6)
+    probes = full.access_kmers_codes(gm.integers(0, nr, 2048))
+    mutants = probes.copy()
+    mutants[np.arange(2048), gm.integers(0, K, 2048)] = gm.integers(1, 5, 2048)
+    probes = np.concatenate([probes, mutants])
+    reset_counts()
+    widths, mw_args = capture(lambda: full.member_widths(probes),
+                              [(ms_mod, "merge_path")])
+    MEMBER = {**ONE_JOIN, "clamp_scan": 0, "derandomize_translate": 0}
+    launches["member_widths"] = read_counts("member_widths", MEMBER)
+    no_dollar = ~(probes == 0).any(axis=1)
+    if set(np.unique(widths).tolist()) - {0, 1} or not np.array_equal(
+            (widths == 1) & no_dollar, gap_filling._member_rows(index, probes)):
+        raise SystemExit("FAIL member_widths on the card differs from the host "
+                         "index's membership")
+    print(f"member_widths: {probes.shape[0]} probes on the card equal the host "
+          f"index's binary search ({int(widths.sum())} members)", flush=True)
+
+    # the kernels at the full index's shapes (sentinel-tailed tables: cap 0
+    # in the 2-bit join, all-ones keys in the rows join and the probe)
+    full_shapes = {
+        "full-index batch": fb_args["merge_path"][0],
+        "full-index map": fm_args["merge_path"][0],
+        "full-index member": mw_args["merge_path"][0],
+    }
+    for label, ops in full_shapes.items():
+        check("merge_path", f"{label} W={ops[0].shape[0]} "
+              f"na={ops[0].shape[1]} nb={ops[2].shape[1]}",
+              merge_path(*ops), merge_path_plain(*ops))
+    full_scans = {
+        "full-index batch": fb_args["clamp_scan"][0],
+        "full-index map": fm_args["clamp_scan"][0],
+    }
+    for label, (sw, cp, bits) in full_scans.items():
+        for rev in (False, True):
+            check("clamp_scan", f"{label} bits={bits} W={sw.shape[0]} "
+                  f"reverse={rev} M={sw.shape[1]}",
+                  [clamp_scan(sw, cp, bits, rev)],
+                  [clamp_scan_plain(sw, cp, bits, rev)])
+    full_ms, _k, _thr_full, full_tl = fb_args["derandomize_translate"][0]
+    check_dt(f"full-index batch {full_ms.shape[0]}x{full_ms.shape[1]} "
+             f"(strided rows)", full_ms, full_tl)
+
+    # the interval gap path on a 400 kbase slice: fill_gaps over
+    # SparseIntervals of the card-resident MS row, against the CPU run; the
+    # same refinement as map_ with gap filling alone
+    idx_s = api.build([query[:n254]], BuildOpts(k=K, build_select=True))
+    ref_s, codes_s = ref[:n254], encode_ascii(ref[:n254])
+    t_s = random_match_threshold(K, idx_s.n_kmers, 4, 1e-7)
+    off = MapOpts(fill_gaps=False, call_variants=False, format=False)
+    fill_only = MapOpts(call_variants=False, format=False,
+                        sbwt_build_opts=BuildOpts(k=K, build_select=True))
+    gap_out = {}
+    for where, device in (("card", cuda), ("cpu", "cpu")):
+        tr = list(api.map_(ref_s, idx_s, off, device=device).decode())
+        row = ms_mod.query_ms_row_device(device_index(idx_s, device), codes_s)
+        reset_stats()
+        got = gap_filling.fill_gaps(
+            tr, None, engine_mod.SparseIntervals(idx_s, codes_s, ms=row),
+            ref_s, idx_s, t_s, 1e-7)
+        gap_out[where] = (got, get_stats().as_dict().get("gaps_filled"))
+    if gap_out["card"] != gap_out["cpu"]:
+        raise SystemExit("FAIL fill_gaps over SparseIntervals on the card "
+                         "differs from the CPU run")
+    if "".join(gap_out["card"][0]).encode() != api.map_(ref_s, idx_s,
+                                                        fill_only):
+        raise SystemExit("FAIL fill_gaps over intervals differs from map_ "
+                         "with gap filling")
+    if not gap_out["card"][1]:
+        raise SystemExit("FAIL fill_gaps on the slice filled no gap")
+    print(f"interval gap path: fill_gaps on {n254} bases over SparseIntervals "
+          f"on the card equals the CPU run and map_ with gap filling alone "
+          f"({gap_out['card'][1]} gaps filled)", flush=True)
+    del gap_out, tr
+
+    # the command line in-process on the pair written as FASTA: each verb's
+    # output equals the rows formatted from the API results held above
+    rle_rc = api.find_batch([revcomp_ascii(q) for q in q_list], index,
+                            FindOpts(), device=cuda)
+    rle_seq_rc = api.find_batch([revcomp_ascii(q) for q in q_list], seq_index,
+                                FindOpts())
+
+    def tsv(ref_file, target, ref_len, plus, minus):
+        """find's TSV rows for the batch file (kbo_tpu_torch.cli.cmd_find's
+        columns) from two RLE lists per query."""
+        lines = []
+        for qi in range(QN):
+            for strand, rles in (("+", plus[qi]), ("-", minus[qi])):
+                for rle, start, end in cli_mod._find_rows(rles, strand, QL):
+                    length = rle.end - rle.start
+                    ident = 100.0 * rle.matches / length if length else 0.0
+                    cov = (100.0 * (rle.matches + rle.mismatches) / ref_len
+                           if ref_len else 0.0)
+                    lines.append(
+                        f"batch.fa\t{ref_file}\t{start}\t{end}\t{strand}"
+                        f"\t{length}\t{rle.mismatches}\t{rle.gap_bases}"
+                        f"\t{rle.gap_opens}\t{ident:.2f}\t{cov:.2f}\tb{qi}"
+                        f"\t{target}")
+        return lines
+
+    cli_ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fa = {name: os.path.join(tmp, name)
+              for name in ("ref.fa", "query.fa", "batch.fa")}
+        with open(fa["ref.fa"], "wb") as fh:
+            fh.write(b">ref\n" + ref + b"\n")
+        with open(fa["query.fa"], "wb") as fh:
+            fh.write(b">query\n" + query + b"\n")
+        with open(fa["batch.fa"], "wb") as fh:
+            fh.write(b"".join(b">b%d\n%s\n" % (i, q)
+                              for i, q in enumerate(q_list)))
+        prefix = os.path.join(tmp, "idx")
+
+        def run_cli(label, argv):
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                cli_mod.main(argv, device=cuda)
+            torch.cuda.synchronize()
+            cli_ms[label] = (time.perf_counter() - t) * 1e3
+            return out.getvalue()
+
+        vcf = run_cli("call", ["call", "-k", str(K), "-r", fa["ref.fa"],
+                               fa["query.fa"]]).splitlines()
+        if vcf[0] != "##fileformat=VCFv4.4" or [
+                line for line in vcf if not line.startswith("#")] != [
+                cli_mod._vcf_row("ref", ref, v) for v in call_gpu]:
+            raise SystemExit("FAIL cli call differs from the API's variants")
+        header = run_cli("find", [
+            "find", "-k", str(K), "-r", fa["query.fa"], fa["batch.fa"]
+        ]).splitlines()
+        if header[1:] != tsv("query.fa", "query.fa", len(query), rle_gpu,
+                             rle_rc):
+            raise SystemExit("FAIL cli find differs from the API's segments")
+        got = run_cli("find --device-index", [
+            "find", "-k", str(K), "--device-index", "-r", fa["query.fa"],
+            fa["batch.fa"]]).splitlines()
+        if got[1:] != tsv("query.fa", "query.fa", len(query), rle_seq_gpu,
+                          rle_seq_rc):
+            raise SystemExit("FAIL cli find --device-index differs from the "
+                             "API's segments")
+        got = run_cli("map", ["map", "-k", str(K), "-r", fa["ref.fa"],
+                              fa["query.fa"]])
+        if got != ">query.fa\n" + dmap_gpu[True].decode() + "\n":
+            raise SystemExit("FAIL cli map differs from the API's map_")
+        run_cli("build", ["build", "-k", str(K), "-o", prefix, fa["query.fa"]])
+        got = run_cli("find -i", ["find", "-i", prefix, fa["batch.fa"]])
+        if got.splitlines()[1:] != tsv("idx", "idx", None, rle_gpu, rle_rc):
+            raise SystemExit("FAIL cli find -i on the built index differs "
+                             "from the API's segments")
+    print(f"cli: call ({len(call_gpu)} VCF rows), find, find --device-index, "
+          f"map, build -o then find -i ({len(header) - 1} TSV rows) equal the "
+          f"rows formatted from the API's results", flush=True)
+
     # ---- 7. times on the card
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1120,11 +1409,11 @@ def main() -> int:
                 fn()
         return dev_ms(run) / n
 
-    def host_ms(fn):
+    def host_ms(fn, reps=REPS):
         fn()
         torch.cuda.synchronize()
         ts = []
-        for _ in range(REPS):
+        for _ in range(reps):
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1159,9 +1448,10 @@ def main() -> int:
           f"({QN / t_batch * 1e3:.1f} queries/s, "
           f"{QN * QL / t_batch * 1e3 / 1e6:.2f} Mbases/s)", flush=True)
 
+    t_maps = {}
     for label, opts_of in (("MapOpts()", dopts), ("refinements off", mopts)):
         for fmt in (True, False):
-            t_map = host_ms(
+            t_map = t_maps[label, fmt] = host_ms(
                 lambda: api.map_(ref, index, opts_of(fmt), device=cuda))
             print(f"{tag} map_ {label} format={fmt}: {t_map:.3f} ms "
                   f"({n / t_map * 1e3 / 1e6:.2f} Mbases/s) over {n} bases, "
@@ -1173,14 +1463,17 @@ def main() -> int:
               flush=True)
 
     # map_ by stage, as api.map_batch runs them for this one contig
-    ref_mat = np.zeros((1, Lm), dtype=np.uint8)
-    ref_mat[0, :n] = np.frombuffer(ref, dtype=np.uint8)
-    seq_lens = np.asarray([n], dtype=np.int32)
     cap_d, cap_g = _pow2_cap(Lm // 1024), _pow2_cap(Lm // 1536)
     w_grid = max(K - threshold + 1, 1)
 
     def upload():
         packed_up = mapsweep.pack_ascii_host(ref_mat, seq_lens)
+        return mapsweep.decode_packed4_encode_device(
+            *(torch.from_numpy(a).to(cuda) for a in packed_up), map_tl
+        )
+
+    def upload_plain():
+        packed_up = mapsweep.pack_ascii_plain(ref_mat, seq_lens)
         return mapsweep.decode_packed4_encode_device(
             *(torch.from_numpy(a).to(cuda) for a in packed_up), map_tl
         )
@@ -1253,11 +1546,60 @@ def main() -> int:
     print(f"merge=bitonic: resolve_variants_core over {cap_d} drop slots "
           f"equals merge=path ({int(want_v[2])} variants)", flush=True)
     del got_v, want_v
-    # device stages by CUDA events; the two stages that begin or end on the
-    # host (numpy pack before the upload, paint after the fetch) by the
-    # host clock around a synchronise
+    # gap filling at full width: every gap run of the sweep's table through
+    # the host evaluator, from the device grid and from colex intervals
+    # (SparseIntervals over the card-resident MS row), patch for patch
+    block = _packed.cpu().numpy()[0]
+    ng = int(block[1])
+    gp = block[2:]
+    runs_dev = [(int(a), int(b)) for a, b in zip(
+        gp[cap_d : cap_d + ng], gp[cap_d + cap_g : cap_d + cap_g + ng])]
+    goff = 3 * cap_d + 2 * cap_g
+    grid_all = gp[goff : goff + cap_g * w_grid].reshape(cap_g, w_grid)[:ng]
+    translation = list(out_f.decode())
+    if runs_dev != gap_filling._gap_runs(translation, threshold):
+        raise SystemExit("FAIL the sweep's gap runs differ from the host's")
+    ms_row_gap = ms_mod.query_ms_row_device(dev, codes)
+
+    def gaps_grid():
+        return gap_filling.fill_gaps_patches(
+            runs_dev, None, ref, index, threshold, 1e-7, grid=grid_all)
+
+    def gaps_intervals():
+        iv = engine_mod.SparseIntervals(index, codes, ms=ms_row_gap)
+        return gap_filling.fill_gaps_patches(
+            runs_dev, iv, ref, index, threshold, 1e-7)
+
+    def gaps_fill():
+        iv = engine_mod.SparseIntervals(index, codes, ms=ms_row_gap)
+        return gap_filling.fill_gaps(translation, None, iv, ref, index,
+                                     threshold, 1e-7)
+
+    patches_grid, patches_iv = gaps_grid(), gaps_intervals()
+    if patches_iv != patches_grid:
+        raise SystemExit("FAIL gap patches from intervals differ from the "
+                         "grid's")
+    # host numpy of about half a second a call: medians of 3
+    print(f"{tag} gap filling at full width over {ng} gap runs: "
+          f"{len(patches_iv)} patches from intervals, {len(patches_grid)} "
+          f"from the device grid (equal); fill_gaps_patches from intervals "
+          f"{host_ms(gaps_intervals, 3):.3f} ms, from the grid "
+          f"{host_ms(gaps_grid, 3):.3f} ms; fill_gaps over the {n}-base "
+          f"translation {host_ms(gaps_fill, 3):.3f} ms (host clock, medians "
+          f"of 3)", flush=True)
+    del translation, ms_row_gap, grid_all
+
+    # device stages by CUDA events; the stages that begin or end on the
+    # host (the pack before the upload, paint after the fetch) by the host
+    # clock around a synchronise
     for name, fn, clock in (
-        ("upload+decode (host pack included, host clock)", upload, host_ms),
+        ("upload+decode (native pack included, host clock)", upload, host_ms),
+        ("upload+decode with the numpy pack (not on the path, host clock)",
+         upload_plain, host_ms),
+        ("pack alone, native (host clock)",
+         lambda: mapsweep.pack_ascii_host(ref_mat, seq_lens), host_ms),
+        ("pack alone, numpy (not on the path, host clock)",
+         lambda: mapsweep.pack_ascii_plain(ref_mat, seq_lens), host_ms),
         ("ms3_rows_sweep", sweep, dev_ms),
         ("ms3_rows_sweep want_qtable (MapOpts())", lambda: mapsweep.ms3_rows_sweep(
             dev.keys3, dev.rows_packed, codes_dev, K, want_qtable=True), dev_ms),
@@ -1334,6 +1676,32 @@ def main() -> int:
           f"{t_seq:.3f} ms ({QN / t_seq * 1e3:.1f} queries/s; the full "
           f"index {t_batch:.3f} ms); build_device {t_build_dev:.3f} ms "
           f"once (host clock, first call)", flush=True)
+    # the device-built full index: its build, and each call beside its
+    # host-index twin (host clock around the call)
+    t_bf = host_ms(lambda: api.build_device(
+        [query], BuildOpts(k=K, build_select=True), full=True, device=cuda))
+    print(f"{tag} build_device(full=True) over {len(query)} bases: "
+          f"{t_bf:.3f} ms (first call {t_build_full:.3f} ms)", flush=True)
+    for what, t_full, t_host in (
+        (f"find_batch[{QN}x{QL}]",
+         host_ms(lambda: api.find_batch(q_list, full, FindOpts())), t_batch),
+        ("map_ MapOpts() format=True",
+         host_ms(lambda: api.map_(ref, full, dopts(True))),
+         t_maps["MapOpts()", True]),
+        (f"call CallOpts(k={K})",
+         host_ms(lambda: api.call(full, ref, copts())), t_call),
+    ):
+        print(f"{tag} {what} against build_device(full=True)'s index: "
+              f"{t_full:.3f} ms ({n / t_full * 1e3 / 1e6:.2f} Mbases/s over "
+              f"the streamed side where it applies); the host-built index "
+              f"{t_host:.3f} ms", flush=True)
+    print(f"{tag} member_widths of {probes.shape[0]} probes: "
+          f"{host_ms(lambda: full.member_widths(probes)):.3f} ms (host "
+          f"clock)", flush=True)
+    for label, t_cli in cli_ms.items():
+        print(f"{tag} cli {label}: {t_cli:.1f} ms (one run, host clock, "
+              f"in-process; reading the FASTA and the host index build "
+              f"included)", flush=True)
 
     # each kernel alone at the find-core and map shapes, beside its plain
     # version, its byte bound and (where there is one) a library call: the
@@ -1401,6 +1769,34 @@ def main() -> int:
             None,
             f"M={M}, W={W}, bits={bits}, one direction",
         )
+    for label, (ak, ap, bk, bp) in full_shapes.items():
+        W = ak.shape[0]
+        M = ak.shape[1] + bk.shape[1]
+        rows.setdefault(label, {})["merge_path"] = (
+            dev_ms(lambda: merge_path(ak, ap, bk, bp)),
+            dev_ms(lambda: merge_path_plain(ak, ap, bk, bp)),
+            2 * M * (W + 1) * 4 / hbm * 1e3,
+            dev_ms(lib_sort_of(torch.cat([ak, bk], 1))),
+            f"M={M}, W={W}",
+        )
+    for label, (sw, cp, bits) in full_scans.items():
+        W, M = sw.shape
+        rows.setdefault(label, {})["clamp_scan"] = (
+            dev_ms(lambda: clamp_scan(sw, cp, bits, False)),
+            dev_ms(lambda: clamp_scan_plain(sw, cp, bits, False)),
+            ((W + 1) * 4 + 4) * M / hbm * 1e3,
+            None,
+            f"M={M}, W={W}, bits={bits}, one direction",
+        )
+    Qf, Lf = full_ms.shape
+    rows["full-index batch"]["derandomize_translate"] = (
+        dev_ms(lambda: derandomize_translate(full_ms, K, _thr_full, full_tl)),
+        dev_ms(lambda: derandomize_translate_plain(full_ms, K, _thr_full,
+                                                   full_tl)),
+        (5 * Qf * Lf + 4 * Qf) / hbm * 1e3,
+        None,
+        f"Q={Qf}, L={Lf}",
+    )
     Qs, Ls = seq_ms.shape
     rows["seq-index"]["derandomize_translate"] = (
         dev_ms(lambda: derandomize_translate(seq_ms, K, _thr, seq_tl)),
@@ -1549,6 +1945,12 @@ def main() -> int:
     breakdown("call", lambda: api.call(index, ref, copts(), device=cuda))
     breakdown(f"find_batch[{QN}x{QL}] against build_device's index",
               lambda: api.find_batch(q_list, seq_index, FindOpts()))
+    breakdown(f"find_batch[{QN}x{QL}] against build_device(full=True)",
+              lambda: api.find_batch(q_list, full, FindOpts()))
+    breakdown("map_ MapOpts() format=True against build_device(full=True)",
+              lambda: api.map_(ref, full, dopts(True)))
+    breakdown("call against build_device(full=True)",
+              lambda: api.call(full, ref, copts()))
 
     # one derandomize_translate call at each shape: one kernel, at most one
     # memset (the look-back form's status words), no host-to-device copy
@@ -1590,18 +1992,25 @@ def main() -> int:
                        [("rk-vs-seq", main), ("find-core", "find-core"),
                         ("batch", "find_batch"), ("interval k=51", "call"),
                         ("interval k=254", "call k=254"),
-                        ("seq-index", "find_batch DeviceSeqIndex")]),
+                        ("seq-index", "find_batch DeviceSeqIndex"),
+                        ("full-index batch", "find_batch DeviceFullIndex"),
+                        ("full-index map", "map_ DeviceFullIndex"),
+                        ("full-index member", "member_widths")]),
         "clamp_scan": ("clamp_scan.cu", "kbo_tpu/kernels/pallas_join.py:191",
                        ("map", main),
                        [("rk-vs-seq", main), ("find-core", "find-core"),
                         ("batch", "find_batch"), ("vs-seq", "call"),
                         ("vs-seq k=254", "call k=254"),
-                        ("seq-index", "find_batch DeviceSeqIndex")]),
+                        ("seq-index", "find_batch DeviceSeqIndex"),
+                        ("full-index batch", "find_batch DeviceFullIndex"),
+                        ("full-index map", "map_ DeviceFullIndex")]),
         "derandomize_translate": (
             "derand_translate.cu", "attic/pallas_postprocess.py:258",
             ("map", main), [("find-core", "find-core"),
                             ("batch", "find_batch"),
-                            ("seq-index", "find_batch DeviceSeqIndex")]),
+                            ("seq-index", "find_batch DeviceSeqIndex"),
+                            ("full-index batch",
+                             "find_batch DeviceFullIndex")]),
         "bitonic_merge": ("bitonic.cu", "kbo_tpu/kernels/pallas_sort.py:178",
                           ("find-core", "ms2_core merge=bitonic"),
                           [("map", "ms3_rows_core merge=bitonic"),

@@ -13,10 +13,14 @@ Served so far, on one device: :func:`build` -> :func:`find` /
 with the default ``MapOpts()`` (the 3-bit rows sweep, a hand-written CUDA
 derandomize+translate kernel, candidate tables, device gap scoring and
 variant resolution, delta-run assembly); :func:`call` (drop scan, sparse
-interval probes, the index-free join against the reference sequence); and
-``api.build_device``'s sequence index for :func:`find_batch`.
-``device=None`` means the CUDA card.
+interval probes, the index-free join against the reference sequence);
+``api.build_device``'s sequence index for :func:`find_batch` and its full
+index for every entry point; and the command line (``python -m
+kbo_tpu_torch``, :mod:`kbo_tpu_torch.cli`). ``device=None`` means the CUDA
+card.
 """
+
+__version__ = "0.1.0"
 
 from kbo_tpu_torch.opts import BuildOpts, CallOpts, FindOpts, MapOpts, MatchOpts
 from kbo_tpu_torch.api import (

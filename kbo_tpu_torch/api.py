@@ -38,17 +38,21 @@ def build(seq_data, build_opts: BuildOpts | None = None) -> SbwtIndex:
 
 def build_device(seq_data, build_opts: BuildOpts | None = None,
                  full: bool = False, device=None):
-    """Device-built index (no host SBWT construction): the sequences' own
-    sorted 3-bit window keys, a :class:`kbo_tpu_torch.kernels.ms.
-    DeviceSeqIndex` on ``device``, which serves :func:`find_batch`.
-    ``full=True`` (the complete join-table set) is not ported yet."""
-    if full:
-        raise NotImplementedError(
-            "build_device(full=True) (DeviceFullIndex): ROADMAP Queue 1 "
-            "item 6"
-        )
+    """Device-built index (no host SBWT construction) on ``device``.
+
+    Default: a find-only :class:`kbo_tpu_torch.kernels.ms.DeviceSeqIndex`
+    (the sequences' own sorted 3-bit window keys), which serves
+    :func:`find_batch`. ``full=True``: a :class:`kbo_tpu_torch.kernels.ms.
+    DeviceFullIndex` -- three radix sorts on the device emit the complete
+    join-table set, so every entry point (find, matches, map, call) runs
+    against it; only six metadata scalars cross to the host.
+    """
     opts = build_opts or BuildOpts()
     seqs = [s.encode() if isinstance(s, str) else bytes(s) for s in seq_data]
+    if full:
+        return ms_kernels.DeviceFullIndex(
+            seqs, opts.k, add_revcomp=opts.add_revcomp, device=device
+        )
     return ms_kernels.DeviceSeqIndex(
         seqs, opts.k, add_revcomp=opts.add_revcomp, device=device
     )
@@ -90,9 +94,10 @@ def find_batch(query_seqs: list[bytes], sbwt, find_opts: FindOpts | None = None,
     """Batched :func:`find`: all queries go through one device pipeline,
     with segments extracted on the device at ``max_gap_len == 0``.
 
-    ``sbwt`` is an :class:`SbwtIndex` or a
-    :class:`kbo_tpu_torch.kernels.ms.DeviceSeqIndex` from
-    :func:`build_device` (the index-free path, on that index's device)."""
+    ``sbwt`` is an :class:`SbwtIndex`, or an index from
+    :func:`build_device`: a :class:`kbo_tpu_torch.kernels.ms.DeviceSeqIndex`
+    (the index-free path) or a :class:`kbo_tpu_torch.kernels.ms.
+    DeviceFullIndex`, each on its own device."""
     opts = find_opts or FindOpts()
     if mesh is not None:
         raise NotImplementedError(
@@ -100,10 +105,11 @@ def find_batch(query_seqs: list[bytes], sbwt, find_opts: FindOpts | None = None,
             "Queue 1 item 8"
         )
     seq_index = isinstance(sbwt, ms_kernels.DeviceSeqIndex)
-    if not (seq_index or isinstance(sbwt, SbwtIndex)):
-        raise NotImplementedError(
-            "find_batch against a device-built full index (DeviceFullIndex): "
-            "ROADMAP Queue 1 item 6"
+    indexes = (SbwtIndex, ms_kernels.DeviceIndex, ms_kernels.DeviceSeqIndex)
+    if not isinstance(sbwt, indexes):
+        raise TypeError(
+            f"find_batch needs an SbwtIndex or an index from build_device, "
+            f"not {type(sbwt).__name__}"
         )
     if not query_seqs:
         return []
@@ -249,7 +255,7 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
     if k >= 128:
         raise NotImplementedError(
             "map_ at k >= 128 takes the 2-bit sweep (map_sweep_compact_core): "
-            "left out of ROADMAP Queue 1 item 4a"
+            "ROADMAP Queue 1 item 4c"
         )
 
     # shapes come from the byte lengths alone (1 code per byte): the sweep
@@ -259,8 +265,7 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
     if Q > max_tag(k):
         raise NotImplementedError(
             "map_batch beyond the tagged join's contig capacity takes the "
-            "packed-fetch host refinement: left out of ROADMAP Queue 1 "
-            "item 4a"
+            "packed-fetch host refinement: ROADMAP Queue 1 item 4c"
         )
     L = _bucket(int(seq_lens.max()))
     # delta positions travel as int32 flat offsets (q * L + i)
@@ -283,7 +288,7 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
         raise NotImplementedError(
             "map_batch of this many contigs against this index exceeds the "
             "rows join's slot budget even chunked; the 2-bit sweep "
-            "(map_sweep_compact_core) is left out of ROADMAP Queue 1 item 4a"
+            "(map_sweep_compact_core) is ROADMAP Queue 1 item 4c"
         )
 
     with stage("map_sweep", bases=int(seq_lens.sum())):
@@ -297,20 +302,13 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
         # bytes, so ship 4 bases/byte + an exception list for every byte
         # that is not uppercase ACGT, rebuild the exact raw matrix on the
         # device and derive the sweep codes from it. Dense exceptions
-        # (soft-masked genomes) upload the raw matrix instead.
+        # (soft-masked genomes) upload the raw matrix instead. The chunked
+        # sweep packs and ships chunk by chunk, so the host packs chunk
+        # c + 1 while the card sweeps chunk c.
         ref_mat = np.zeros((Q, L), dtype=np.uint8)
         for q, r in enumerate(ref_seqs):
             ref_mat[q, : len(r)] = np.frombuffer(r, dtype=np.uint8)
         lengths_dev = torch.from_numpy(seq_lens).to(dev.device)
-        packed_up = mapsweep.pack_ascii_host(ref_mat, seq_lens)
-        if packed_up is not None:
-            ref_mat_dev, codes_dev = mapsweep.decode_packed4_encode_device(
-                *(torch.from_numpy(a).to(dev.device) for a in packed_up),
-                lengths_dev,
-            )
-        else:
-            ref_mat_dev = torch.from_numpy(ref_mat).to(dev.device)
-            codes_dev = mapsweep.encode_ascii_device(ref_mat_dev)
 
         # single-contig maps reuse the sweep's sorted query window keys as
         # the variant join's table (kernels/refine.py resolve_variants_core
@@ -319,19 +317,39 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
             opts.call_variants and Q == 1
             and not opts.sbwt_build_opts.add_revcomp
         )
-        # the join stage is cap-independent: the capacity-overflow retry
-        # below re-runs only the postprocess stage
+        pipelined = None
         if use_chunked:
-            out = mapsweep.ms3_rows_sweep_chunked(
-                dev.keys3, dev.rows_packed, codes_dev, k, chunk,
+            pipelined = mapsweep.upload_sweep_chunked_pipelined(
+                dev.keys3, dev.rows_packed, ref_mat, seq_lens, k, chunk,
                 want_qtable=want_qt,
             )
+        if pipelined is not None:
+            (ref_mat_dev, codes_dev, ms_dev, uniq_dev, rows_dev,
+             seq_tables) = pipelined
         else:
-            out = mapsweep.ms3_rows_sweep(
-                dev.keys3, dev.rows_packed, codes_dev, k, want_qtable=want_qt
-            )
-        ms_dev, uniq_dev, rows_dev = out[:3]
-        seq_tables = out[3] if want_qt else None
+            packed_up = mapsweep.pack_ascii_host(ref_mat, seq_lens)
+            if packed_up is not None:
+                ref_mat_dev, codes_dev = mapsweep.decode_packed4_encode_device(
+                    *(torch.from_numpy(a).to(dev.device) for a in packed_up),
+                    lengths_dev,
+                )
+            else:
+                ref_mat_dev = torch.from_numpy(ref_mat).to(dev.device)
+                codes_dev = mapsweep.encode_ascii_device(ref_mat_dev)
+            # the join stage is cap-independent: the capacity-overflow
+            # retry below re-runs only the postprocess stage
+            if use_chunked:
+                out = mapsweep.ms3_rows_sweep_chunked(
+                    dev.keys3, dev.rows_packed, codes_dev, k, chunk,
+                    want_qtable=want_qt,
+                )
+            else:
+                out = mapsweep.ms3_rows_sweep(
+                    dev.keys3, dev.rows_packed, codes_dev, k,
+                    want_qtable=want_qt,
+                )
+            ms_dev, uniq_dev, rows_dev = out[:3]
+            seq_tables = out[3] if want_qt else None
 
         # the gap-candidate window never exceeds k - threshold + 1
         # positions (mapsweep.map_postprocess3_core docstring)

@@ -35,7 +35,8 @@ _device_cache: dict[tuple[int, str], tuple[SbwtIndex, DeviceIndex]] = {}
 
 def device_index(index, device=None) -> DeviceIndex:
     """Memoized device-resident sort-join tables of an index on a device
-    (a :class:`DeviceIndex` passes through)."""
+    (a :class:`DeviceIndex`, such as a device-built
+    :class:`kbo_tpu_torch.kernels.ms.DeviceFullIndex`, passes through)."""
     if isinstance(index, DeviceIndex):
         return index
     dev = resolve_device(device)

@@ -13,7 +13,8 @@ through the query's index. Nothing full-length ever goes back to the host:
    runs of the translation (gap filling, src/gap_filling.rs:466-475) -- and
    resolves the variant anchors and gap unique-context grids as gathers from
    the dense join outputs.
-2. Refinement produces (position, char) patches (a later slice of the port).
+2. Refinement produces (position, char) patches (kernels/refine.py on the
+   device, refine/gap_filling.py on the host for the gaps over budget).
 3. :func:`assemble_map_prio_core` lands the patches in the device-resident
    translation, applies ``relative_to_ref`` (reference:
    src/format.rs:266-287) and emits the output as *delta runs against the
@@ -29,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from kbo_tpu_torch import native
 from kbo_tpu_torch.kernels.ms import INVALID, ms3_rows_core
 from kbo_tpu_torch.kernels.postprocess import derandomize_translate
 
@@ -48,7 +50,14 @@ def pack_ascii_host(ref_mat: np.ndarray, lengths):
     soft-masking, '$', ...), padded to a power of two with position Q*L.
     Returns None when L % 4 != 0 or the exceptions exceed L//16 (soft-masked
     genomes: the packed form would not pay for itself) -- the caller uploads
-    the raw matrix instead."""
+    the raw matrix instead. The loop runs in the native host library
+    (native_src/pack.cpp); :func:`pack_ascii_plain` is its numpy form."""
+    return native.pack_ascii(ref_mat, lengths)
+
+
+def pack_ascii_plain(ref_mat: np.ndarray, lengths):
+    """The numpy form of :func:`pack_ascii_host`, same outputs byte for
+    byte: the plain version the tests hold the native loop against."""
     Q, L = ref_mat.shape
     if L % 4:
         return None
@@ -267,6 +276,63 @@ def ms3_rows_sweep_chunked(keys3, ref_packed, codes, k: int, chunk: int,
     if want_qtable:
         return ms, uniq, rows, [p[3] for p in parts]
     return ms, uniq, rows
+
+
+def upload_sweep_chunked_pipelined(keys3, ref_packed, ref_mat, lengths,
+                                   k: int, chunk: int,
+                                   want_qtable: bool = False):
+    """The chunked stage 1 with the upload chunked too: pack and ship chunk
+    c + 1 while the device sweeps chunk c.
+
+    Each chunk of the raw [Q, L] matrix packs on the host
+    (:func:`pack_ascii_host`), crosses, decodes to raw ASCII and codes on
+    the device and sweeps with the previous chunk's last k - 1 device codes
+    as context; the launches are asynchronous, so the host packs the next
+    chunk while the card works. In-chunk lengths clip the row lengths into
+    the slice, so beyond-length positions decode to 0 and encode INVALID:
+    the outputs equal the one-shot upload followed by
+    :func:`ms3_rows_sweep_chunked`, byte for byte.
+
+    Returns (ref_mat_dev [Q, L], codes_dev [Q, L], ms, uniq, rows,
+    qtables or None), or None when the packed upload does not apply (the
+    caller takes the one-shot upload)."""
+    Q, L = ref_mat.shape
+    if L % 4 or chunk % 4:
+        return None
+    dev = keys3.device
+    n_chunks = (L + chunk - 1) // chunk
+    lens = np.asarray(lengths)
+    ref_parts, code_parts, sweeps = [], [], []
+    for c in range(n_chunks):
+        lo = c * chunk
+        hi = min(lo + chunk, L)
+        sl = ref_mat[:, lo:hi]
+        if hi - lo < chunk:
+            sl = np.pad(sl, ((0, 0), (0, chunk - (hi - lo))))
+        in_chunk_lens = np.clip(lens - lo, 0, chunk).astype(np.int32)
+        packed_up = pack_ascii_host(np.ascontiguousarray(sl), in_chunk_lens)
+        if packed_up is None:
+            return None  # dense exceptions: the one-shot raw upload
+        r_dev, c_dev = decode_packed4_encode_device(
+            *(torch.from_numpy(a).to(dev)
+              for a in packed_up + (in_chunk_lens,))
+        )
+        if c == 0:
+            ctx = torch.full((Q, k - 1), INVALID, dtype=torch.uint8, device=dev)
+        else:
+            ctx = code_parts[-1][:, -(k - 1):]
+        ref_parts.append(r_dev)
+        code_parts.append(c_dev)
+        sweeps.append(_ms3_rows_chunk(
+            keys3, ref_packed, torch.cat([ctx, c_dev], dim=1), k, want_qtable
+        ))
+    ref_mat_dev = torch.cat(ref_parts, dim=1)[:, :L]
+    codes_dev = torch.cat(code_parts, dim=1)[:, :L]
+    ms, uniq, rows = (
+        torch.cat([p[i] for p in sweeps], dim=1)[:, :L] for i in range(3)
+    )
+    qtables = [p[3] for p in sweeps] if want_qtable else None
+    return ref_mat_dev, codes_dev, ms, uniq, rows, qtables
 
 
 def map_postprocess3_core(ms, uniq, rows, lengths, k: int, threshold: int,

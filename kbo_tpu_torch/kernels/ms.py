@@ -30,7 +30,12 @@ import functools
 import numpy as np
 import torch
 
-from kbo_tpu_torch.index.encode import encode_ascii, revcomp_ascii
+from kbo_tpu_torch.index.encode import (
+    decode_codes,
+    encode_ascii,
+    revcomp_ascii,
+    split_segments,
+)
 from kbo_tpu_torch.index.sbwt import SbwtIndex
 from kbo_tpu_torch.kernels.join import _common_chunks, clamp_scan
 from kbo_tpu_torch.kernels.sort import (
@@ -603,8 +608,8 @@ class DeviceIndex:
     """An SbwtIndex's sort-join tables resident on a device.
 
     The host-built ``keys2`` / ``cap2`` / ``keys3`` are uploaded as they are
-    (kbo_tpu's ``KBO_TPU_UPLOAD_INDEX=1`` branch; the on-device table
-    rebuild comes with a later slice of the port). ``keys2`` / ``cap2`` go
+    (kbo_tpu's ``KBO_TPU_UPLOAD_INDEX=1`` branch; an index built on the
+    device is a :class:`DeviceFullIndex`). ``keys2`` / ``cap2`` go
     up at construction; ``keys3``, ``lcs3`` and the rows join's static
     reference payload ``rows_packed`` are made once, at the first read (the
     map path's), so an index that only serves find never holds them.
@@ -761,3 +766,153 @@ def ms3_values_vs_sorted_seq_core(ref_words, codes, k: int):
                      device=buf.device)
     c = _neighbor_best(ref_words, cap, q_words, meta, bits=3)
     return torch.clamp(c, max=k).reshape(Q, L + k - 1)[:, k - 1 :]
+
+
+# ------------------------------------------------ device-built full index
+
+# the all-ones uint32 sentinel key as an int32 bit pattern: it sorts after
+# every real key and probe (real 3-bit words keep 2 zero lead bits), since
+# every sort and merge here compares words as unsigned
+_SENT = -1
+
+
+def _build_full_core(buf, k: int):
+    """The complete join-table set of an index, built on the device.
+
+    buf: uint8 [T] -- k '$' (0) codes before each maximal ACGT segment,
+    INVALID tail padding. Three radix sorts: the colex order of every
+    selected window (sentinels last, position and window length riding
+    along), the deduplicated rows moved to the front (kept keys are
+    distinct, so the stable sort keeps their colex order), and the 2-bit
+    keys of the kept rows with their caps.
+
+    The row set is the host build's (index/build.py): the distinct
+    k-windows ending at the root '$' (position k - 1) and at every ACGT
+    position. Duplicates and unselected positions become sentinel rows
+    after ``n_rows``: all-ones keys3 (after every probe) with row position
+    -1, and in keys2 all-ones keys with cap 0, which the clamped-LCP scan
+    treats as contributing nothing.
+
+    Returns (keys3 int32 [W3, T], row_pos int32 [T], keys2 int32 [W2, T],
+    cap2 int32 [T], meta int32 [6] = (n_rows, n_kmers, C[0..3])).
+    """
+    T = buf.shape[0]
+    idx = torch.arange(T, dtype=torch.int32, device=buf.device)
+    valid = (buf >= 1) & (buf <= 4)
+    v = window_limits(buf, k)
+    selected = valid | (idx == k - 1)
+    w3s = torch.where(selected[None], pack_windows_3bit(buf, k, pad_chunk=0),
+                      _SENT)
+
+    # sort 1: colex order, sentinels last
+    sw, (spos, sv) = _radix_sort(w3s, [idx, v])
+    prev = torch.cat([sw[:, :1] ^ 1, sw[:, :-1]], dim=1)
+    keep = (sw[0] != _SENT) & (sw != prev).any(dim=0)
+    top = u32(sw[0]) >> 27
+    meta = torch.stack(
+        [keep.sum(), (keep & (sv == k)).sum()]
+        + [(keep & (top <= b)).sum() for b in range(4)]
+    ).to(torch.int32)
+
+    # sort 2: deduplicated duplicates join the sentinel tail
+    keys3, (row_pos, row_v) = _radix_sort(
+        torch.where(keep[None], sw, _SENT),
+        [torch.where(keep, spos, -1), torch.where(keep, sv, 0)],
+    )
+
+    # sort 3: 2-bit keys of the kept rows, gathered by position; sentinel
+    # rows get cap 0
+    w2_all, _ = pack_windows_2bit(buf, k)
+    kept = row_pos >= 0
+    w2g = torch.where(
+        kept[None], w2_all[:, torch.clamp(row_pos, min=0).to(torch.int64)],
+        _SENT,
+    )
+    cap = torch.where(kept, torch.clamp(row_v, max=k), 0).to(torch.int32)
+    keys2, (cap2,) = _radix_sort(w2g, [cap])
+    return keys3, row_pos, keys2, cap2, meta
+
+
+class DeviceFullIndex(DeviceIndex):
+    """An SBWT index built and kept on a device (counterpart of
+    kbo_tpu.kernels.ms.DeviceFullIndex; reference build path:
+    src/index.rs:56-99).
+
+    It serves the whole query surface (find / matches / map / call) as a
+    :class:`DeviceIndex` does: the value join (``keys2`` / ``cap2``), the
+    sparse interval probes and the map sweep (``keys3``, whose ``lcs3`` and
+    ``rows_packed`` are made at the first read), membership probes
+    (:meth:`member_widths`) and k-mer extraction (row positions gathered on
+    the device, the text sliced on the host). Its tables carry a sentinel
+    tail after ``n_rows`` (see :func:`_build_full_core`). The rank
+    bitvectors are never built: no query path of the device execution
+    reads them. Only the six metadata scalars cross to the host.
+    """
+
+    def __init__(self, seqs: list[bytes], k: int, add_revcomp: bool = False,
+                 device=None):
+        assert 1 < k < 64
+        parts = []
+        for s in seqs:
+            s = bytes(s)
+            segs = split_segments(encode_ascii(s))
+            if add_revcomp:
+                segs += split_segments(encode_ascii(revcomp_ascii(s)))
+            for seg in segs:
+                parts.append(np.zeros(k, dtype=np.uint8))
+                parts.append(seg)
+        assert parts, "cannot build an index from empty input"
+        text = np.concatenate(parts)
+        buf = np.full(_bucket(text.size), INVALID, dtype=np.uint8)
+        buf[: text.size] = text
+        self.device = resolve_device(device)
+        # the tables are plain attributes here, where DeviceIndex uploads
+        # keys3 at its first read; lcs3 and rows_packed stay lazy
+        self.keys3, self.row_pos, self.keys2, self.cap2, meta = (
+            _build_full_core(torch.from_numpy(buf).to(self.device), k)
+        )
+        self.text = text  # host copy of the construction buffer
+        meta = meta.cpu().numpy()
+        self.n_rows = int(meta[0])
+        self.n_kmers = int(meta[1])
+        self.C = meta[2:6].astype(np.int32)
+        self.k = k
+
+    def alphabet(self) -> bytes:
+        return b"ACGT"
+
+    def access_kmers_codes(self, rows: np.ndarray) -> np.ndarray:
+        """[R, k] code matrix of colex rows: the row positions gather on
+        the device (a small fetch), the text slices on the host."""
+        rows = np.atleast_1d(np.asarray(rows, dtype=np.int64))
+        if rows.size and (rows.min() < 0 or rows.max() >= self.n_rows):
+            # sentinel rows carry row_pos -1: slicing with it would wrap
+            # into the text's end and return plausible garbage
+            raise IndexError(f"colex row out of range [0, {self.n_rows})")
+        pos = self.row_pos[torch.from_numpy(rows).to(self.device)]
+        pos = pos.cpu().numpy().astype(np.int64)
+        offs = np.arange(-self.k + 1, 1, dtype=np.int64)
+        return self.text[pos[:, None] + offs[None, :]]
+
+    def access_kmer_codes(self, row: int) -> np.ndarray:
+        return self.access_kmers_codes(np.asarray([row]))[0]
+
+    def access_kmer(self, row: int) -> bytes:
+        return decode_codes(self.access_kmer_codes(int(row)))
+
+    def member_widths(self, probes: np.ndarray) -> np.ndarray:
+        """Colex interval widths (0 or 1: rows are distinct length-k
+        strings) of [P, k] full-length code probes: the gap filler's
+        membership test, one interval probe on the device."""
+        probes = np.asarray(probes, dtype=np.uint8)
+        P = probes.shape[0]
+        Pb = 64
+        while Pb < P:
+            Pb <<= 1
+        windows = np.full((Pb, self.k), INVALID, dtype=np.uint8)
+        windows[:P] = probes
+        ms = torch.full((Pb,), self.k, dtype=torch.int32, device=self.device)
+        l, r = intervals3_windows_core(
+            self.keys3, torch.from_numpy(windows).to(self.device), ms, self.k
+        )
+        return (r - l)[:P].cpu().numpy().astype(np.int32)

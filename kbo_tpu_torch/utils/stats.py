@@ -3,8 +3,8 @@
 The reference has no observability layer (SURVEY §5: no logging/timing
 crates); this module provides the new framework's equivalent: lightweight
 counters + stage timers that the pipelines update as they run, a JSON dump
-for CLI/batch consumers. (The device trace context ``profile_trace`` of
-kbo_tpu.utils.stats comes with a later slice of the port.)
+for CLI/batch consumers, and an optional ``torch.profiler`` trace context
+for device-level profiling.
 
 Counters are process-global and cheap (plain dict increments); they are
 always collected. ``as_dict`` derives rates (bases/s per stage) from the
@@ -69,3 +69,23 @@ def stage(name: str, bases: int | None = None):
         _stats.add(f"{name}_calls")
         if bases is not None:
             _stats.add(f"{name}_bases", bases)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | None):
+    """Wrap a block in a ``torch.profiler`` trace (the CPU, and the card
+    when there is one) written into ``log_dir`` as a Chrome trace (view
+    with TensorBoard or Perfetto); a no-op without ``log_dir``."""
+    if not log_dir:
+        yield
+        return
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=acts,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
+    ):
+        yield

@@ -147,5 +147,5 @@ def test_find_batch_guards():
     assert kbo_tpu_torch.find_batch([], idx, device="cpu") == []
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kbo_tpu_torch.find_batch([b"ACGT"], idx, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="build_device"):
         kbo_tpu_torch.find_batch([b"ACGT"], object(), device="cpu")

@@ -205,5 +205,8 @@ def test_build_device_find_batch(add_revcomp):
                                       kbo_tpu.FindOpts(max_gap_len=gap))
         assert [_rows(g) for g in got] == [_rows(w) for w in want]
     assert any(len(r) for r in got)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        api.build_device([genome], tb, full=True, device="cpu")
+    full = api.build_device([genome, other], tb, full=True, device="cpu")
+    assert isinstance(full, tms.DeviceFullIndex)
+    got_full = kbo_tpu_torch.find_batch(
+        queries, full, kbo_tpu_torch.FindOpts(max_gap_len=20))
+    assert [_rows(g) for g in got_full] == [_rows(w) for w in want]

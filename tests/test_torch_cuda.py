@@ -546,3 +546,143 @@ def test_find_batch_device_seq_index_on_card(cuda, add_revcomp):
     assert (merge_path.launches, clamp_scan.launches,
             derandomize_translate.launches) == (1, 2, 1)
     assert got == kbo_tpu_torch.find_batch(queries, cpu_index)
+
+
+def _full_pair(seed, n=60_000):
+    """A genome with SNPs, a deletion and an N run on the indexed side,
+    and the reference it is mapped against."""
+    rng = np.random.default_rng(seed)
+    ref = BASES[rng.integers(0, 4, n)].tobytes()
+    q = bytearray(ref)
+    for pos in range(700, n - 700, 1100):
+        q[pos] = BASES[(BASES.tolist().index(q[pos]) + 1) % 4]
+    del q[9100:9103]
+    q[15000:15002] = b"NN"
+    return ref, bytes(q)
+
+
+@pytest.mark.parametrize("add_revcomp", [False, True])
+def test_device_full_index_on_card(cuda, add_revcomp):
+    """build_device(full=True) on the card: every table (sentinel tail
+    included) equals the CPU build; find_batch (1 merge, 2 scans, 1
+    derandomize_translate), the default map_ (2 merges, 4 scans, 1
+    derandomize_translate) and call against it equal the CPU runs."""
+    from kbo_tpu_torch import api
+
+    ref, query = _full_pair(31)
+    bo = kbo_tpu_torch.BuildOpts(k=51, add_revcomp=add_revcomp)
+    gpu = api.build_device([query], bo, full=True, device=cuda)
+    cpu = api.build_device([query], bo, full=True, device="cpu")
+    assert (gpu.n_rows, gpu.n_kmers) == (cpu.n_rows, cpu.n_kmers)
+    assert np.array_equal(gpu.C, cpu.C)
+    for name in ("keys3", "row_pos", "keys2", "cap2", "lcs3", "rows_packed"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    queries = [ref[s : s + 1500] for s in range(0, 50_000, 2500)]
+    merge_path.launches = clamp_scan.launches = 0
+    derandomize_translate.launches = 0
+    got = kbo_tpu_torch.find_batch(queries, gpu)
+    assert (merge_path.launches, clamp_scan.launches,
+            derandomize_translate.launches) == (1, 2, 1)
+    assert got == kbo_tpu_torch.find_batch(queries, cpu)
+    mo = kbo_tpu_torch.MapOpts(sbwt_build_opts=bo)
+    merge_path.launches = clamp_scan.launches = 0
+    derandomize_translate.launches = 0
+    got = kbo_tpu_torch.map_(ref, gpu, mo)
+    assert (merge_path.launches, clamp_scan.launches,
+            derandomize_translate.launches) == (2, 4, 1)
+    assert got == kbo_tpu_torch.map_(ref, cpu, mo, device="cpu")
+    co = kbo_tpu_torch.CallOpts(sbwt_build_opts=bo)
+    got = kbo_tpu_torch.call(gpu, ref, co)
+    want = kbo_tpu_torch.call(cpu, ref, co, device="cpu")
+    assert [(v.query_pos, v.query_chars, v.ref_chars) for v in got] == [
+        (v.query_pos, v.query_chars, v.ref_chars) for v in want]
+    assert len(got) > 0
+
+
+def test_full_index_joins_on_card(cuda):
+    """The merge and the scans at the full index's sentinel-tailed shapes
+    (the 2-bit value join with its cap-0 tail, the 3-bit rows join with
+    its all-ones tail) equal their plain versions slot for slot."""
+    from kbo_tpu_torch import api
+    from kbo_tpu_torch.kernels.ms import (
+        _merge_scan,
+        pack_windows_2bit,
+        pack_windows_3bit,
+    )
+
+    ref, query = _full_pair(32)
+    bo = kbo_tpu_torch.BuildOpts(k=51)
+    gpu = api.build_device([query], bo, full=True, device=cuda)
+    assert gpu.keys3.shape[1] > gpu.n_rows
+    buf, _ = make_flat_buffer(encode_ascii(ref), 51)
+    buf = torch.from_numpy(buf)
+    meta = torch.arange(buf.shape[0], dtype=torch.int32)
+    q2, _ = pack_windows_2bit(buf, 51)
+    q3 = pack_windows_3bit(buf, 51)
+    for ref_words, cap, q, bits, packed in [
+        (gpu.keys2, gpu.cap2, q2, 2, None),
+        (gpu.keys3, None, q3, 3, gpu.rows_packed),
+    ]:
+        before = (merge_path.launches, clamp_scan.launches)
+        got = _merge_scan(ref_words, cap, q.to(cuda), meta.to(cuda), bits,
+                          ref_packed=packed)
+        assert (merge_path.launches, clamp_scan.launches) == (
+            before[0] + 1, before[1] + 2)
+        want = _merge_scan(
+            ref_words.cpu(), None if cap is None else cap.cpu(), q, meta,
+            bits, ref_packed=None if packed is None else packed.cpu())
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_member_widths_on_card(cuda):
+    """The gap filler's membership probe on the card (one interval merge)
+    equals the CPU's over 4000 probes: rows, mutated rows, junk."""
+    from kbo_tpu_torch import api
+
+    _, query = _full_pair(33)
+    bo = kbo_tpu_torch.BuildOpts(k=51)
+    gpu = api.build_device([query], bo, full=True, device=cuda)
+    cpu = api.build_device([query], bo, full=True, device="cpu")
+    rng = np.random.default_rng(4)
+    probes = gpu.access_kmers_codes(rng.integers(0, gpu.n_rows, 2000))
+    mutated = probes.copy()
+    mutated[np.arange(2000), rng.integers(0, 51, 2000)] = rng.integers(
+        1, 5, 2000)
+    probes = np.concatenate([probes, mutated])
+    before = merge_path.launches
+    got = gpu.member_widths(probes)
+    assert merge_path.launches == before + 1
+    want = cpu.member_widths(probes)
+    assert np.array_equal(got, want) and got.sum() > 1500
+
+
+def test_fill_gaps_sparse_intervals_on_card(cuda):
+    """fill_gaps over SparseIntervals of a card-resident MS row against
+    the device full index equals the CPU run."""
+    from kbo_tpu_torch import api, engine
+    from kbo_tpu_torch.kernels.ms import query_ms_row_device
+    from kbo_tpu_torch.ops.derandomize import (
+        derandomize_ms_vec,
+        random_match_threshold,
+    )
+    from kbo_tpu_torch.ops.translate import translate_ms_vec
+    from kbo_tpu_torch.refine import gap_filling
+
+    ref, query = _full_pair(34, n=20_000)
+    ref = bytearray(ref)
+    ref[5000:5060] = BASES[np.random.default_rng(1).integers(0, 4, 60)].tobytes()
+    ref = bytes(ref)
+    bo = kbo_tpu_torch.BuildOpts(k=31)
+    codes = encode_ascii(ref)
+    out = []
+    for device in (cuda, "cpu"):
+        idx = api.build_device([query], bo, full=True, device=device)
+        row = query_ms_row_device(idx, codes)
+        ms = row.cpu().numpy().astype(np.int64)
+        t = random_match_threshold(31, idx.n_kmers, 4, 1e-7)
+        tr = translate_ms_vec(derandomize_ms_vec(ms, 31, t), 31, t)
+        iv = engine.SparseIntervals(idx, codes, ms=row)
+        out.append(gap_filling.fill_gaps(tr, ms, iv, ref, idx, t, 1e-7))
+    assert out[0] == out[1] and out[0] != tr

@@ -195,18 +195,19 @@ def test_map_run_budget_reassembly(monkeypatch):
 
 def test_map_chunked_sweep_equals_single_shot(monkeypatch):
     """Past the rows join's slot budget map_batch chunks the sweep along
-    the sequence; the output does not change."""
+    the sequence, with the upload chunked on the same grid; the output does
+    not change."""
     ref, query = _planted(4, n=3000)
     tidx, jidx = _both_indexes(query, 31)
     want = kbo_tpu_torch.map_(ref, tidx, _opts(kbo_tpu_torch, True), device="cpu")
     chunks = []
-    real = tmap.ms3_rows_sweep_chunked
+    real = tmap.upload_sweep_chunked_pipelined
 
-    def spy(keys3, ref_packed, codes, k, chunk, **kw):
+    def spy(keys3, ref_packed, ref_mat, lengths, k, chunk, **kw):
         chunks.append(chunk)
-        return real(keys3, ref_packed, codes, k, chunk, **kw)
+        return real(keys3, ref_packed, ref_mat, lengths, k, chunk, **kw)
 
-    monkeypatch.setattr(tmap, "ms3_rows_sweep_chunked", spy)
+    monkeypatch.setattr(tmap, "upload_sweep_chunked_pipelined", spy)
     monkeypatch.setattr(tms, "_PACKED_SLOT_LIMIT", tidx.keys3.shape[1] + 1500)
     got = kbo_tpu_torch.map_(ref, tidx, _opts(kbo_tpu_torch, True), device="cpu")
     assert got == want == japi.map_batch([ref], jidx, _opts(kbo_tpu, True))[0]
@@ -248,6 +249,12 @@ def test_map_other_paths_raise():
     assert tapi.max_tag(31) == 1 << 30
     with pytest.raises(ValueError, match="sbwt_build_opts.k"):
         kbo_tpu_torch.map_(b"ACGTACGTAGG", tidx, kbo_tpu_torch.MapOpts(),
+                           device="cpu")
+    big = kbo_tpu_torch.build([b"ACGT" * 40 + b"GATTACA"],
+                              kbo_tpu_torch.BuildOpts(k=128))
+    with pytest.raises(NotImplementedError, match="item 4c"):
+        kbo_tpu_torch.map_(b"ACGT" * 40, big,
+                           kbo_tpu_torch.MapOpts(call_variants=False),
                            device="cpu")
 
 

@@ -236,8 +236,17 @@ def test_fill_gaps_patches_grid_equal(case):
             assert get_stats().as_dict() == jstats().as_dict()
             n_patch += len(got)
     assert n_patch > 0
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tgap.fill_gaps_patches([(5, 9)], None, ref0, case["idx"], t, 1e-7)
+    # without a grid the same runs read colex intervals (the interval gap
+    # path): equal to kbo_tpu's from the same interval array
+    from kbo_tpu_torch import engine
+
+    ng = int(block[0, 1])
+    runs = [(int(s), int(e)) for s, e in zip(
+        block[0, 2 + CAP : 2 + CAP + ng], block[0, 2 + 2 * CAP : 2 + 2 * CAP + ng])]
+    iv = engine.compute_ms_intervals_at(
+        case["idx"], encode_ascii(ref0), np.arange(len(ref0)), device="cpu")[1]
+    got = tgap.fill_gaps_patches(runs, iv, ref0, case["idx"], t, 1e-7)
+    assert got == jgap.fill_gaps_patches(runs, iv, ref0, jindex, t, 1e-7)
 
 
 def test_overlap_helpers_equal():
