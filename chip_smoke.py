@@ -13,8 +13,10 @@ Phases, each printed as it passes; any failure exits non-zero:
    operand rows, derand_translate.cu's two forms) and the dynamic shared
    memory per CTA of merge_path.cu and clamp_scan.cu by W; builds the
    native host library (kbo_tpu_torch/native_src, g++) and prints its build
-   time; then the reference's golden MS vector and matches doctest on the
-   card;
+   time; profiles one derandomize_translate call at each shape the paths
+   give it (find-core, find_batch, map_): one kernel, at most one memset,
+   no host-to-device copy; then the reference's golden MS vector and
+   matches doctest on the card;
 3. kernels: merge_path, clamp_scan (bits 2 and 3, both directions),
    derandomize_translate, bitonic_merge and bitonic_sort against their plain
    PyTorch versions on the card, bit-exact, at the find and map shapes (the
@@ -51,6 +53,23 @@ Phases, each printed as it passes; any failure exits non-zero:
    launch counts read around each
    entry-point call alone; outputs must equal the port's own device="cpu"
    run byte for byte;
+5b. the 2-bit map path (k >= 128, and batches past the rows join's slot
+   budget): api.map_ with MapOpts() at k=151 over the whole pair (a host
+   index built at k=151), format true and false, and an 8-contig
+   api.map_batch, with launch counts; the same calls on a 1 Mbase slice
+   (index and reference) equal the port's own device="cpu" run; map_ and
+   an 8-contig map_batch at k=254 on phase 3's 400 kbase index equal the
+   CPU run; the 2-bit flow at k=51 (api._map_classic) equal to phase 5's
+   default map_ byte for byte; the sweep alone
+   (map_sweep_compact_core) at an over-budget shape, 60 000 contigs of
+   256 bases (past 2^24 slots: the join's unpacked branch, no merge), its
+   first 12 000 contigs equal to the CPU run and all of them to the
+   packed join in sub-batches; then merge_path, clamp_scan and
+   derandomize_translate at the shapes these calls gave them (captured:
+   the 2-bit sweep's join at W = 10 and 16, the interval merge at 17
+   rows, the vs-sequence scans at 16 words, the over-budget scans and
+   derandomize_translate's [60 000, 1024] rows) against their plain
+   versions, bit for bit;
 6. the call slice on the same pair: api.call at k=51 over the whole pair
    (the drop scan, the anchor rounds' interval joins, the vs-sequence
    join), also with add_revcomp, and at k=254 on a 400 kbase slice (27 key
@@ -91,12 +110,13 @@ Phases, each printed as it passes; any failure exits non-zero:
    two forms by device time at 1 to 32 tiles a row; the native pack beside
    the numpy one; the device-built full index's build and its calls beside
    their host-index twins; gap filling at full width from intervals beside
-   the device grid's, patch for patch; each CLI verb), each with the card's
+   the device grid's, patch for patch; each CLI verb; the 2-bit map path
+   at k=151 by the host clock, by its host steps from the run's stats and
+   by device stage, the k=254 and 8-contig maps, the k=51 2-bit flow
+   beside the default route, the over-budget sweep), each with the card's
    name and power limit, then one torch.profiler run of each workload (and
    of one bitonic merge and one bitonic sort, by pass kind): device busy
-   share and the kernels that take the time; and one of a
-   derandomize_translate call at each shape: its kernels, memsets and
-   host-to-device copies.
+   share and the kernels that take the time.
 
 Prints the per-kernel JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -282,6 +302,61 @@ def main() -> int:
         smem = {w: getattr(lib, fn)(w) for w in ws}
         print(f"{src}.cu dynamic shared memory per CTA by W: "
               f"{json.dumps(smem)} B", flush=True)
+
+    # one derandomize_translate call at each shape the paths give it
+    # (find-core: a flat row, its true length an int; find_batch: 512
+    # strided rows; map_: one strided row, its true length a tensor) is
+    # one kernel, at most one memset (the look-back form's status words)
+    # and no host-to-device copy. The launch structure depends on the
+    # shapes, strides and argument kinds, not on the values, so zero rows
+    # of those shapes serve; it runs here, early, because torch.profiler
+    # was seen to lose device records in a process that has run for a
+    # minute or more (PERF.md section 7)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_events(fn, n=1):
+        """The device events of n calls of fn under torch.profiler."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        ) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+
+    n_len, L_map = int(args.genome), _bucket(int(args.genome))
+    thr_any = random_match_threshold(K, n_len, 4, 1e-7)
+    for label, ms_in, tl_in in (
+        ("find-core", torch.zeros(K - 1 + L_map, dtype=torch.int32,
+                                  device=cuda), K - 1 + L_map),
+        ("batch", torch.zeros((QN, QL + K - 1), dtype=torch.int32,
+                              device=cuda)[:, K - 1:],
+         torch.full((QN,), QL, dtype=torch.int32, device=cuda)),
+        ("map", torch.zeros((1, L_map + K - 1), dtype=torch.int32,
+                            device=cuda)[:, K - 1:],
+         torch.tensor([n_len], dtype=torch.int32, device=cuda)),
+    ):
+        dev_ev = device_events(
+            lambda: derandomize_translate(ms_in, K, thr_any, tl_in))
+        ev = {e.key: e.count for e in dev_ev}
+        n_memset = sum(c for key, c in ev.items() if key.startswith("Memset"))
+        n_h2d = sum(c for key, c in ev.items() if "HtoD" in key)
+        n_kern = sum(c for key, c in ev.items()
+                     if not key.startswith(("Memset", "Memcpy")))
+        dev_us = {e.key[:40]: round(e.self_device_time_total / e.count, 3)
+                  for e in dev_ev}
+        print(f"{tag} profile derandomize_translate {label} "
+              f"{tuple(ms_in.shape)}: {n_kern} kernel, {n_memset} memset, "
+              f"{n_h2d} host-to-device copies per call; device us per event "
+              f"{json.dumps(dev_us)}", flush=True)
+        if n_kern != 1 or n_memset > 1 or n_h2d:
+            raise SystemExit(f"FAIL derandomize_translate {label}: not one "
+                             "launch a call")
+    del ms_in, tl_in
 
     # ---- reference values on a small input, through the entry points
     # (reference: src/index.rs:238-240 MS vector, src/lib.rs:594-610 matches)
@@ -958,14 +1033,8 @@ def main() -> int:
           f"{out_f.count(b'-')} '-' in the translation); map_batch: 8 contigs "
           f"of {len(contigs[0])} bases equal the CPU run", flush=True)
 
-    # ---- 6. the call slice and the device-built sequence index
-    def tuples(variants):
-        return [(v.query_pos, v.query_chars, v.ref_chars) for v in variants]
-
-    def copts(k=K, rc=False):
-        return CallOpts(sbwt_build_opts=BuildOpts(
-            k=k, build_select=True, add_revcomp=rc))
-
+    # ---- 5b. the 2-bit map path: k >= 128, and batches past the rows
+    # join's slot budget; launch counts around each call alone
     def capture(fn, names):
         """Run fn with the named functions (module, attribute) recording
         their arguments; returns (fn's result, {attribute: [args, ...]})."""
@@ -985,6 +1054,244 @@ def main() -> int:
         finally:
             for mod, attr in names:
                 setattr(mod, attr, real[attr])
+
+    def first(args, pred):
+        return next(a for a in args if pred(a))
+
+    K151, n1m = 151, min(n, 1_000_000)
+    bo151 = BuildOpts(k=K151, build_select=True)
+
+    def opts151(fmt):
+        return MapOpts(format=fmt, sbwt_build_opts=bo151)
+
+    def opts254(fmt):
+        return MapOpts(format=fmt, sbwt_build_opts=BuildOpts(
+            k=K254, build_select=True))
+
+    t0 = time.perf_counter()
+    idx151 = api.build([query], bo151)
+    t_build151 = time.perf_counter() - t0
+    print(f"index k={K151}: {n} bases, {idx151.n_rows} rows, built on the "
+          f"host in {t_build151:.1f}s", flush=True)
+    # the sweep's join, the interval probe's joins (one per prefetch that
+    # misses), the 2-bit k-mer batch; two scans each for the sweep and the
+    # k-mer batch, two for the vs-sequence join; one derandomize_translate
+    classic_names = [(ms_mod, "merge_path"), (ms_mod, "clamp_scan"),
+                     (mapsweep, "derandomize_translate")]
+
+    def classic_counts(path, contigs_called=1):
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in counters.items()}
+        want = {**ONE_JOIN, "merge_path": got["merge_path"],
+                "clamp_scan": 2 + 4 * contigs_called}
+        if got != want or got["merge_path"] < 1 + 2 * contigs_called:
+            raise SystemExit(f"FAIL launches on the {path} path: {got}, "
+                             f"expected {want} with a merge for the sweep "
+                             f"and two or more for each contig")
+        launches[path] = got
+        return got
+
+    t0 = time.perf_counter()
+    cmap_gpu, cargs, cstats = {}, {}, {}
+    for fmt in (True, False):
+        reset_counts()
+        reset_stats()
+        cmap_gpu[fmt], cargs[fmt] = capture(
+            lambda: api.map_(ref, idx151, opts151(fmt), device=cuda),
+            classic_names)
+        classic_counts(f"map_ k={K151} format={fmt}")
+        cstats[fmt] = get_stats().as_dict()
+    reset_counts()
+    cbatch_gpu = api.map_batch(contigs_of(ref), idx151, opts151(True),
+                               device=cuda)
+    classic_counts(f"map_batch k={K151}", len(contigs))
+    print(f"k={K151} map path on the card: {time.perf_counter() - t0:.2f}s "
+          f"(first runs), launches per call "
+          f"{json.dumps(launches[f'map_ k={K151} format=True'])}",
+          flush=True)
+    st = cstats[True]
+    ct, cf = cmap_gpu[True], cmap_gpu[False]
+    if len(ct) != n or len(cf) != n or set(ct) - set(b"ACGTN-") \
+            or set(cf) - set(b"MX-RACGTNID") \
+            or [len(b) for b in cbatch_gpu] != [len(c) for c in contigs]:
+        raise SystemExit(f"FAIL map_ k={K151} output has the wrong length "
+                         "or alphabet")
+    if st["variants_called"] == 0 or st["gaps_filled"] == 0:
+        raise SystemExit(f"FAIL map_ k={K151} resolved no variant or filled "
+                         "no gap")
+    print(f"map_ k={K151} at full width: {n} bases, variants resolved "
+          f"{st['variants_called']}, gaps seen {st['gaps_seen']}, filled "
+          f"{st['gaps_filled']}, unfilled bases {st['gap_bases_unfilled']}; "
+          f"{n - int((np.frombuffer(ct, np.uint8) == np.frombuffer(ref, np.uint8)).sum())}"
+          f" bases differ from the reference", flush=True)
+    # the CPU runs of the full width take minutes: a 1 Mbase slice (its
+    # own k=151 index) both ways, format true and false and 8 contigs
+    t0 = time.perf_counter()
+    idx151s = api.build([query[:n1m]], bo151)
+    ref1m = ref[:n1m]
+    for fmt in (True, False):
+        if api.map_(ref1m, idx151s, opts151(fmt), device=cuda) != api.map_(
+                ref1m, idx151s, opts151(fmt), device="cpu"):
+            raise SystemExit(f"FAIL map_ k={K151} format={fmt} on {n1m} "
+                             "bases differs from the CPU run")
+    if api.map_batch(contigs_of(ref1m), idx151s, opts151(True),
+                     device=cuda) != api.map_batch(
+            contigs_of(ref1m), idx151s, opts151(True), device="cpu"):
+        raise SystemExit(f"FAIL map_batch k={K151} on {n1m} bases differs "
+                         "from the CPU run")
+    del idx151s
+    print(f"map_ k={K151} on a {n1m}-base slice (index and reference), "
+          f"format true and false, and its 8-contig map_batch equal the CPU "
+          f"run ({time.perf_counter() - t0:.1f}s, index build included)",
+          flush=True)
+
+    # k = 254 on phase 3's 400 kbase index: 17 rows through the sweep's
+    # merge, 16 words through its scans, 27 rows through the interval merge
+    t0 = time.perf_counter()
+    map254, args254 = {}, {}
+    for fmt in (True, False):
+        reset_counts()
+        map254[fmt], args254[fmt] = capture(
+            lambda: api.map_(ref[:n254], idx254, opts254(fmt), device=cuda),
+            classic_names)
+        classic_counts(f"map_ k={K254} format={fmt}")
+        if map254[fmt] != api.map_(ref[:n254], idx254, opts254(fmt),
+                                   device="cpu"):
+            raise SystemExit(f"FAIL map_ k={K254} format={fmt} differs from "
+                             "the CPU run")
+    b254 = contigs_of(ref[:n254])
+    if api.map_batch(b254, idx254, opts254(True), device=cuda) != \
+            api.map_batch(b254, idx254, opts254(True), device="cpu"):
+        raise SystemExit(f"FAIL map_batch k={K254} differs from the CPU run")
+    print(f"map_ k={K254} on {n254} bases, format true and false, and its "
+          f"8-contig map_batch equal the CPU run "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+
+    # the 2-bit flow at k = 51, where the default route takes the rows
+    # join: the same bytes as phase 5's default map_
+    for fmt in (True, False):
+        if api._map_classic([ref], index, dopts(fmt), cuda)[0] != \
+                dmap_gpu[fmt]:
+            raise SystemExit(f"FAIL the 2-bit map flow at k={K} format={fmt} "
+                             "differs from the default map_")
+    print(f"map_ k={K}: the 2-bit flow equals the default route (the rows "
+          f"join) byte for byte, format true and false", flush=True)
+
+    # the sweep alone at an over-budget many-contig shape: contigs of 256
+    # bases (L = 1024 a row), too many for the rows join even chunked, and
+    # past 2^24 slots with the index (_neighbor_best's unpacked branch: no
+    # merge). The CPU run of all of it takes minutes: the first OB_CPU
+    # contigs, also past 2^24 slots, against their CPU twin; every contig
+    # against the card's packed branch in sub-batches under 2^24 slots
+    OB_Q, OB_CPU, OB_SUB = 60_000, 12_000, 10_000
+    rc_all = encode_ascii(ref)
+    ob_codes = np.full((OB_Q, 1024), 255, dtype=np.uint8)
+    ob_start = (np.arange(OB_Q) * 7919) % (n - 256)
+    ob_codes[:, :256] = rc_all[ob_start[:, None] + np.arange(256)[None, :]]
+    ob_len = np.full(OB_Q, 256, dtype=np.int32)
+    T3 = int(dev.keys3.shape[1])
+    if api.map_route(K, OB_Q, 1024, T3) != ("classic", 0) or \
+            OB_CPU * (1024 + K - 1) + dev.keys2.shape[1] < 2**24 - 1 or \
+            OB_SUB * (1024 + K - 1) + dev.keys2.shape[1] >= 2**24 - 1:
+        raise SystemExit("FAIL the over-budget shape does not take the "
+                         "2-bit route and the unpacked join")
+    ob_dev = (torch.from_numpy(ob_codes).to(cuda),
+              torch.from_numpy(ob_len).to(cuda))
+
+    def ob_sweep(keys2, cap2, codes_t, len_t):
+        return mapsweep.map_sweep_compact_core(keys2, cap2, codes_t, len_t,
+                                               K, threshold)
+
+    reset_counts()
+    ob_gpu, ob_args = capture(lambda: ob_sweep(dev.keys2, dev.cap2, *ob_dev),
+                              classic_names)
+    launches["over-budget sweep"] = read_counts(
+        "over-budget sweep", {**ONE_JOIN, "merge_path": 0})
+
+    def rows_equal(a, b, lo, hi):
+        """The sweep's outputs of contigs lo to hi of a against b: chars and
+        MS inside the 256 bases, counts and compacted arrays whole."""
+        return all(torch.equal(x[lo:hi, :256].cpu(), y[:, :256].cpu())
+                   for x, y in zip(a[:2], b[:2])) and all(
+            torch.equal(x[lo:hi].cpu(), y.cpu()) for x, y in zip(a[2:], b[2:]))
+
+    t0 = time.perf_counter()
+    ob_cpu = ob_sweep(cpu_dev.keys2, cpu_dev.cap2,
+                      torch.from_numpy(ob_codes[:OB_CPU]),
+                      torch.from_numpy(ob_len[:OB_CPU]))
+    t_ob_cpu = time.perf_counter() - t0
+    if not rows_equal(ob_gpu, ob_cpu, 0, OB_CPU):
+        raise SystemExit(f"FAIL the over-budget sweep's first {OB_CPU} "
+                         "contigs differ from the CPU run")
+    del ob_cpu
+    for lo in range(0, OB_Q, OB_SUB):
+        sub = ob_sweep(dev.keys2, dev.cap2, ob_dev[0][lo : lo + OB_SUB],
+                       ob_dev[1][lo : lo + OB_SUB])
+        if not rows_equal(ob_gpu, sub, lo, lo + OB_SUB):
+            raise SystemExit(f"FAIL the over-budget sweep differs from the "
+                             f"packed join on contigs {lo} to {lo + OB_SUB}")
+    del sub
+    ob_counts = ob_gpu[2].sum(dim=0).tolist()
+    print(f"over-budget sweep: {OB_Q} contigs of 256 bases "
+          f"({OB_Q * (1024 + K - 1)} slots with the {dev.keys2.shape[1]}-row "
+          f"table; route {api.map_route(K, OB_Q, 1024, T3)[0]}): the first "
+          f"{OB_CPU} equal the CPU run ({t_ob_cpu:.1f}s), all equal the "
+          f"packed join in sub-batches of {OB_SUB}; drops {ob_counts[0]}, "
+          f"gap runs {ob_counts[1]}", flush=True)
+    del ob_gpu
+
+    # the kernels at the shapes these calls gave them, against their plain
+    # versions, bit for bit
+    map2_shapes = {
+        f"map2 k={K151}": first(cargs[True]["merge_path"],
+                                lambda a: a[0].shape[0] == 10),
+        f"interval k={K151}": first(cargs[True]["merge_path"],
+                                    lambda a: a[0].shape[0] == 17),
+        f"map2 k={K254}": first(args254[True]["merge_path"],
+                                lambda a: a[0].shape[0] == 16),
+    }
+    for label, ops in map2_shapes.items():
+        check("merge_path", f"{label} W={ops[0].shape[0]} "
+              f"na={ops[0].shape[1]} nb={ops[2].shape[1]}",
+              merge_path(*ops), merge_path_plain(*ops))
+    map2_scans = {
+        f"map2 k={K151}": cargs[True]["clamp_scan"][0],
+        f"vs-seq k={K151}": first(cargs[True]["clamp_scan"],
+                                  lambda a: a[2] == 3),
+        f"map2 k={K254}": args254[True]["clamp_scan"][0],
+        "over-budget": ob_args["clamp_scan"][0],
+    }
+    for label, (sw, cp, bits) in map2_scans.items():
+        for rev in (False, True):
+            check("clamp_scan", f"{label} bits={bits} W={sw.shape[0]} "
+                  f"reverse={rev} M={sw.shape[1]}",
+                  [clamp_scan(sw, cp, bits, rev)],
+                  [clamp_scan_plain(sw, cp, bits, rev)])
+    map2_dt = {
+        f"map2 k={K151}": cargs[True]["derandomize_translate"][0],
+        "over-budget": ob_args["derandomize_translate"][0],
+    }
+    for label, (dms, dk, dthr, dtl) in map2_dt.items():
+        got = derandomize_translate(dms, dk, dthr, dtl)
+        want = derandomize_translate_plain(dms, dk, dthr, dtl)
+        in_len = torch.arange(dms.shape[1], device=cuda)[None, :] < \
+            dtl.reshape(-1, 1)
+        if got[~in_len].any() or not torch.equal(
+                torch.where(in_len, got, 0), torch.where(in_len, want, 0)):
+            raise SystemExit(f"FAIL derandomize_translate {label} differs "
+                             "from plain")
+        print(f"kernel derandomize_translate {label} "
+              f"{dms.shape[0]}x{dms.shape[1]} (strided rows, k={dk}): "
+              f"bit-equal to plain", flush=True)
+    del cargs, args254
+
+    # ---- 6. the call slice and the device-built sequence index
+    def tuples(variants):
+        return [(v.query_pos, v.query_chars, v.ref_chars) for v in variants]
+
+    def copts(k=K, rc=False):
+        return CallOpts(sbwt_build_opts=BuildOpts(
+            k=k, build_select=True, add_revcomp=rc))
 
     call_names = [(ms_mod, "merge_path"), (ms_mod, "clamp_scan"),
                   (ms_mod, "intervals3_windows_core"),
@@ -1091,9 +1398,6 @@ def main() -> int:
           f"RLE lists equal the CPU run", flush=True)
 
     # the slice's kernels at their new shapes against their plain versions
-    def first(args, pred):
-        return next(a for a in args if pred(a))
-
     new_shapes = {
         "interval k=51": first(call_args["merge_path"],
                                lambda a: a[0].shape[0] == 7),
@@ -1384,9 +1688,6 @@ def main() -> int:
           f"rows formatted from the API's results", flush=True)
 
     # ---- 7. times on the card
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def dev_ms(fn):
         fn()
         torch.cuda.synchronize()
@@ -1626,6 +1927,84 @@ def main() -> int:
               f"MiB above the {base_mem / 2**20:.1f} MiB the script holds",
               flush=True)
 
+    # the 2-bit map path at k = 151: host clock around the call (medians of
+    # 3, each call about a second), its host steps from the run's stats,
+    # and its device stages alone (CUDA events; the fetches by the host
+    # clock around a synchronise)
+    c_stats = []
+
+    def one_map151():
+        reset_stats()
+        api.map_(ref, idx151, opts151(True), device=cuda)
+        c_stats.append(get_stats().as_dict())
+
+    t_map151 = host_ms(one_map151, 3)
+    c_stats = c_stats[1:]
+    print(f"{tag} map_ k={K151} MapOpts() format=True (2-bit path): "
+          f"{t_map151:.3f} ms ({n / t_map151 * 1e3 / 1e6:.2f} Mbases/s) over "
+          f"{n} bases, host clock, median of 3", flush=True)
+    for label, fn in (
+        (f"map_batch[8x{len(contigs[0])}] k={K151}",
+         lambda: api.map_batch(contigs, idx151, opts151(True), device=cuda)),
+        (f"map_ k={K254} on {n254} bases",
+         lambda: api.map_(ref[:n254], idx254, opts254(True), device=cuda)),
+        (f"map_ k={K} through the 2-bit flow (the default route: "
+         f"{t_maps['MapOpts()', True]:.3f} ms)",
+         lambda: api._map_classic([ref], index, dopts(True), cuda)),
+    ):
+        print(f"{tag} {label}: {host_ms(fn, 3):.3f} ms (host clock, median "
+              f"of 3)", flush=True)
+    for st_name in ("map_sweep", "map_intervals", "map_gap_fill", "map_call",
+                    "map_assemble", "map_paint"):
+        med = statistics.median(c[f"{st_name}_s"] for c in c_stats) * 1e3
+        print(f"{tag} map_ k={K151} step {st_name}: {med:.3f} ms (host "
+              f"clock, run stats, median of 3)", flush=True)
+    dev151 = device_index(idx151, cuda)
+    thr151 = random_match_threshold(K151, idx151.n_kmers, 4, 1e-7)
+
+    def sweep151():
+        return mapsweep.map_sweep_compact_core(
+            dev151.keys2, dev151.cap2, codes_dev, map_tl, K151, thr151)
+
+    out151 = sweep151()
+    cand151 = mapsweep.fetch_candidates(*out151[2:], cap_d, cap_g).cpu()
+    nd151 = int(cand151[0, 0])
+    if nd151 > cap_d:
+        raise SystemExit("FAIL k=151 drops overflow the timed capacity")
+    # one patch per drop site, about what the refinement writes
+    pp151 = cand151[0, 2 : 2 + nd151].to(cuda)
+    pv151 = torch.full_like(pp151, ord("A"), dtype=torch.uint8)
+
+    def assemble151():
+        return mapsweep.assemble_map_core(out151[0], ref_mat_dev, map_tl,
+                                          pp151, pv151, True)
+
+    asm151 = assemble151()
+    cap_r151 = _pow2_cap(nd151 + int(cand151[0, 1]) + 256)
+    for name, fn, clock in (
+        ("map_sweep_compact_core", sweep151, dev_ms),
+        ("fetch_candidates + fetch (host clock)", lambda: mapsweep.
+         fetch_candidates(*out151[2:], cap_d, cap_g).cpu(), host_ms),
+        (f"assemble_map_core ({nd151} patches)", assemble151, dev_ms),
+        ("fetch_delta_runs + fetch (host clock)", lambda: mapsweep.
+         fetch_delta_runs(*asm151, cap_r151).cpu(), host_ms),
+    ):
+        print(f"{tag} map_ k={K151} stage {name}: {clock(fn):.3f} ms",
+              flush=True)
+    del out151, asm151
+    t_ob = dev_ms(lambda: ob_sweep(dev.keys2, dev.cap2, *ob_dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    ob_sweep(dev.keys2, dev.cap2, *ob_dev)
+    torch.cuda.synchronize()
+    print(f"{tag} over-budget sweep ({OB_Q} contigs of 256 bases, "
+          f"map_sweep_compact_core): {t_ob:.3f} ms "
+          f"({OB_Q * 256 / t_ob * 1e3 / 1e6:.2f} Mbases/s), peak device "
+          f"memory {(torch.cuda.max_memory_allocated() - base_mem) / 2**30:.1f}"
+          f" GiB above the {base_mem / 2**30:.1f} GiB the script holds",
+          flush=True)
+
     # call: the host clock around the call (it returns host objects), and
     # its phases by the host clock of the run's stats (each of the first
     # three ends in a fetch), medians over the same 7 calls
@@ -1788,6 +2167,35 @@ def main() -> int:
             None,
             f"M={M}, W={W}, bits={bits}, one direction",
         )
+    # the 2-bit map path's shapes (captured in phase 5b)
+    for label, (ak, ap, bk, bp) in map2_shapes.items():
+        W = ak.shape[0]
+        M = ak.shape[1] + bk.shape[1]
+        rows.setdefault(label, {})["merge_path"] = (
+            dev_ms(lambda: merge_path(ak, ap, bk, bp)),
+            dev_ms(lambda: merge_path_plain(ak, ap, bk, bp)),
+            2 * M * (W + 1) * 4 / hbm * 1e3,
+            dev_ms(lib_sort_of(torch.cat([ak, bk], 1))),
+            f"M={M}, W={W}",
+        )
+    for label, (sw, cp, bits) in map2_scans.items():
+        W, M = sw.shape
+        rows.setdefault(label, {})["clamp_scan"] = (
+            dev_ms(lambda: clamp_scan(sw, cp, bits, False)),
+            dev_ms(lambda: clamp_scan_plain(sw, cp, bits, False)),
+            ((W + 1) * 4 + 4) * M / hbm * 1e3,
+            None,
+            f"M={M}, W={W}, bits={bits}, one direction",
+        )
+    for label, (dms, dk, dthr, dtl) in map2_dt.items():
+        Qd, Ld = dms.shape
+        rows.setdefault(label, {})["derandomize_translate"] = (
+            dev_ms(lambda: derandomize_translate(dms, dk, dthr, dtl)),
+            dev_ms(lambda: derandomize_translate_plain(dms, dk, dthr, dtl)),
+            (5 * Qd * Ld + 4 * Qd) / hbm * 1e3,
+            None,
+            f"Q={Qd}, L={Ld}, k={dk}",
+        )
     Qf, Lf = full_ms.shape
     rows["full-index batch"]["derandomize_translate"] = (
         dev_ms(lambda: derandomize_translate(full_ms, K, _thr_full, full_tl)),
@@ -1848,16 +2256,8 @@ def main() -> int:
     # forced in turn: device time of the kernel and the memset per call
     # (profiler), beside the form the wrapper picks (_short_rows)
     def device_ms(fn, n=5):
-        fn()
-        torch.cuda.synchronize()
-        with profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        ) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / n / 1e3
+        return sum(e.self_device_time_total
+                   for e in device_events(fn, n)) / n / 1e3
 
     try:
         for qs, ls in ((512, 4096), (512, 8192), (512, 16384), (512, 32768),
@@ -1949,41 +2349,16 @@ def main() -> int:
               lambda: api.find_batch(q_list, full, FindOpts()))
     breakdown("map_ MapOpts() format=True against build_device(full=True)",
               lambda: api.map_(ref, full, dopts(True)))
+    breakdown(f"map_ k={K151} MapOpts() format=True (2-bit path)",
+              lambda: api.map_(ref, idx151, opts151(True), device=cuda))
+    breakdown(f"over-budget sweep ({OB_Q} contigs)",
+              lambda: ob_sweep(dev.keys2, dev.cap2, *ob_dev))
     breakdown("call against build_device(full=True)",
               lambda: api.call(full, ref, copts()))
 
-    # one derandomize_translate call at each shape: one kernel, at most one
-    # memset (the look-back form's status words), no host-to-device copy
-    # (find-core passes its true length as an int)
-    for label, ms_in, tl_in in (("find-core", ms_gpu, T),
-                                ("batch", ms_batch, batch_tl),
-                                ("map", single[0], map_tl)):
-        derandomize_translate(ms_in, K, threshold, tl_in)
-        torch.cuda.synchronize()
-        with profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        ) as prof:
-            derandomize_translate(ms_in, K, threshold, tl_in)
-            torch.cuda.synchronize()
-        dev_ev = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        ev = {e.key: e.count for e in dev_ev}
-        n_memset = sum(c for key, c in ev.items() if key.startswith("Memset"))
-        n_h2d = sum(c for key, c in ev.items() if "HtoD" in key)
-        n_kern = sum(c for key, c in ev.items()
-                     if not key.startswith(("Memset", "Memcpy")))
-        dev_us = {e.key[:40]: round(e.self_device_time_total / e.count, 3)
-                  for e in dev_ev}
-        print(f"{tag} profile derandomize_translate {label}: {n_kern} "
-              f"kernel, {n_memset} memset, {n_h2d} host-to-device copies "
-              f"per call; device us per event {json.dumps(dev_us)}",
-              flush=True)
-        if n_kern != 1 or n_memset > 1 or n_h2d:
-            raise SystemExit(f"FAIL derandomize_translate {label}: not one "
-                             "launch a call")
-
     src = "kbo_tpu_torch/kernels/csrc/"
     main = "map_ MapOpts() format=True"
+    map151, map254 = f"map_ k={K151} format=True", f"map_ k={K254} format=True"
     # name: (source, TPU kernel, (shape, path whose launches it reports),
     #        other (shape, path) pairs)
     sources = {
@@ -1995,7 +2370,10 @@ def main() -> int:
                         ("seq-index", "find_batch DeviceSeqIndex"),
                         ("full-index batch", "find_batch DeviceFullIndex"),
                         ("full-index map", "map_ DeviceFullIndex"),
-                        ("full-index member", "member_widths")]),
+                        ("full-index member", "member_widths"),
+                        (f"map2 k={K151}", map151),
+                        (f"interval k={K151}", map151),
+                        (f"map2 k={K254}", map254)]),
         "clamp_scan": ("clamp_scan.cu", "kbo_tpu/kernels/pallas_join.py:191",
                        ("map", main),
                        [("rk-vs-seq", main), ("find-core", "find-core"),
@@ -2003,14 +2381,20 @@ def main() -> int:
                         ("vs-seq k=254", "call k=254"),
                         ("seq-index", "find_batch DeviceSeqIndex"),
                         ("full-index batch", "find_batch DeviceFullIndex"),
-                        ("full-index map", "map_ DeviceFullIndex")]),
+                        ("full-index map", "map_ DeviceFullIndex"),
+                        (f"map2 k={K151}", map151),
+                        (f"vs-seq k={K151}", map151),
+                        (f"map2 k={K254}", map254),
+                        ("over-budget", "over-budget sweep")]),
         "derandomize_translate": (
             "derand_translate.cu", "attic/pallas_postprocess.py:258",
             ("map", main), [("find-core", "find-core"),
                             ("batch", "find_batch"),
                             ("seq-index", "find_batch DeviceSeqIndex"),
                             ("full-index batch",
-                             "find_batch DeviceFullIndex")]),
+                             "find_batch DeviceFullIndex"),
+                            (f"map2 k={K151}", map151),
+                            ("over-budget", "over-budget sweep")]),
         "bitonic_merge": ("bitonic.cu", "kbo_tpu/kernels/pallas_sort.py:178",
                           ("find-core", "ms2_core merge=bitonic"),
                           [("map", "ms3_rows_core merge=bitonic"),

@@ -19,11 +19,12 @@ from kbo_tpu_torch.index.sbwt import SbwtIndex
 from kbo_tpu_torch.ops import derandomize, format as fmt, translate
 from kbo_tpu_torch.kernels import mapsweep, ms as ms_kernels
 from kbo_tpu_torch.kernels.ms import _bucket
-from kbo_tpu_torch.kernels.refine import max_tag
 from kbo_tpu_torch.opts import BuildOpts, CallOpts, FindOpts, MapOpts, MatchOpts
-from kbo_tpu_torch.refine import variant_calling
+from kbo_tpu_torch.refine import gap_filling, variant_calling
 from kbo_tpu_torch.refine.device_map import (
     DevRefOverflow,
+    _canvas,
+    _paint_runs,
     _pow2_cap,
     map_devref_finish,
 )
@@ -212,8 +213,39 @@ def map_(ref_seq: bytes, query_sbwt: SbwtIndex,
     """Map a query (as an index) onto reference coordinates
     (reference: src/lib.rs:720-761). Role inversion: the QUERY is indexed and
     the REFERENCE sequence is streamed through it. One-contig
-    :func:`map_batch`, whatever the input's size."""
+    :func:`map_batch`, whatever the input's size and k."""
     return map_batch([bytes(ref_seq)], query_sbwt, map_opts, device=device)[0]
+
+
+def map_route(k: int, Q: int, L: int, table_width: int) -> tuple[str, int]:
+    """Which sweep serves a [Q, L] batch against an index whose key table
+    is ``table_width`` columns wide (kbo_tpu's single-device gate,
+    kbo_tpu/api.py ``_map_batch_sparse``): ``("rows", 0)`` the 3-bit rows
+    sweep in one shot, ``("rows", chunk)`` the rows sweep in chunks of
+    ``chunk`` positions, ``("classic", 0)`` the 2-bit sweep with the host
+    refinement.
+
+    The rows join packs the table and the probes into 2^24 slots with
+    k < 128 (kernels.ms.ms3_rows_core); past the budget the sweep runs
+    CHUNKED along the sequence with k-1 context (exact). Each chunk
+    re-scans the key table, so the fewest equal chunks on the 1/8-octave
+    bucket grid that fit the budget, and no chunk under 4k positions: a
+    batch of too many contigs for that takes the 2-bit sweep, as does
+    every k >= 128. (kbo_tpu also leaves the rows path past ``max_tag(k)``
+    = 2^30 contigs; the int32 position space keeps Q below 2^21.)
+    """
+    if k >= 128:
+        return "classic", 0
+    slot_budget = ms_kernels._PACKED_SLOT_LIMIT - table_width
+    if Q * (L + k - 1) < slot_budget:
+        return "rows", 0
+    # strictly under the budget, as the join asserts (n + T < limit)
+    max_chunk = (slot_budget - 1) // Q - (k - 1)
+    n_chunks = max(1, -(-L // max(max_chunk, 1)))
+    chunk = min(_bucket(-(-L // n_chunks)), max_chunk)
+    if 0 < chunk < L and chunk >= 4 * k:
+        return "rows", chunk
+    return "classic", 0
 
 
 def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
@@ -221,16 +253,20 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
               device=None) -> list[bytes]:
     """Batched :func:`map_` over many reference contigs.
 
-    The 3-bit rows sweep + derandomize + translate for ALL contigs run on
-    the device, which also compacts the refinement candidates (MS drops, gap
-    runs); the dense chars/MS arrays never cross to the host. The output is
-    fetched as run-length deltas against the reference and painted on the
-    host (kernels/mapsweep.py, refine/device_map.py).
-
-    Gap filling and variant calling run on the device too
+    Where the rows join fits (k < 128, chunked if need be; see
+    :func:`map_route`), the 3-bit rows sweep + derandomize + translate for
+    ALL contigs run on the device, which also compacts the refinement
+    candidates (MS drops, gap runs); the dense chars/MS arrays never cross
+    to the host. Gap filling and variant calling run on the device too
     (kernels/refine.py): the default ``MapOpts()`` pays one fetch, plus a
     host pass only for gaps whose left extensions exceed the device budgets
-    (refine/gap_filling.py). ``format`` true or false.
+    (refine/gap_filling.py). The output is fetched as run-length deltas
+    against the reference and painted on the host (kernels/mapsweep.py,
+    refine/device_map.py).
+
+    Every other batch (k >= 128, or too many contigs for the rows join)
+    takes :func:`_map_classic`: the 2-bit sweep and the host refinement
+    over sparse colex intervals. ``format`` true or false.
     """
     opts = map_opts or MapOpts()
     if mesh is not None:
@@ -248,48 +284,23 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
             f"call_variants needs map_opts.sbwt_build_opts.k == the index's "
             f"k ({opts.sbwt_build_opts.k} != {k})"
         )
-    threshold = derandomize.random_match_threshold(
-        k, query_sbwt.n_kmers, 4, opts.max_error_prob
-    )
     dev = engine.device_index(query_sbwt, device)
-    if k >= 128:
-        raise NotImplementedError(
-            "map_ at k >= 128 takes the 2-bit sweep (map_sweep_compact_core): "
-            "ROADMAP Queue 1 item 4c"
-        )
 
     # shapes come from the byte lengths alone (1 code per byte): the sweep
     # codes are derived on the device from the reference upload
     seq_lens = np.asarray([len(r) for r in ref_seqs], dtype=np.int32)
     Q = len(ref_seqs)
-    if Q > max_tag(k):
-        raise NotImplementedError(
-            "map_batch beyond the tagged join's contig capacity takes the "
-            "packed-fetch host refinement: ROADMAP Queue 1 item 4c"
-        )
     L = _bucket(int(seq_lens.max()))
     # delta positions travel as int32 flat offsets (q * L + i)
     assert Q * L < 2**31, "padded batch exceeds the int32 position space"
-
-    # The packed join caps table rows + probes at 2^24 slots; past that the
-    # sweep runs CHUNKED along the sequence with k-1 context (exact). Each
-    # chunk re-scans the key table, so the fewest equal chunks on the
-    # 1/8-octave bucket grid that fit the budget.
-    slot_budget = ms_kernels._PACKED_SLOT_LIMIT - int(dev.keys3.shape[1])
-    full_fits = Q * (L + k - 1) < slot_budget
-    # strictly under the budget, as the join asserts (n + T < limit)
-    max_chunk = (slot_budget - 1) // Q - (k - 1)
-    chunk = 0
-    if not full_fits:
-        n_chunks = max(1, -(-L // max(max_chunk, 1)))
-        chunk = min(_bucket(-(-L // n_chunks)), max_chunk)
-    use_chunked = 0 < chunk < L and chunk >= 4 * k
-    if not (full_fits or use_chunked):
-        raise NotImplementedError(
-            "map_batch of this many contigs against this index exceeds the "
-            "rows join's slot budget even chunked; the 2-bit sweep "
-            "(map_sweep_compact_core) is ROADMAP Queue 1 item 4c"
-        )
+    route, chunk = map_route(k, Q, L, int(dev.keys3.shape[1]))
+    if route == "classic":
+        return _map_classic(ref_seqs, query_sbwt, opts, device)
+    threshold = derandomize.random_match_threshold(
+        k, query_sbwt.n_kmers, 4, opts.max_error_prob
+    )
+    ref_mat = _ref_matrix(ref_seqs, L)
+    lengths_dev = torch.from_numpy(seq_lens).to(dev.device)
 
     with stage("map_sweep", bases=int(seq_lens.sum())):
         # optimistic capacities: only a denser-than-expected input pays a
@@ -297,18 +308,6 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
         # gap runs are rarer and cost more per slot in the refinement
         cap_d = _pow2_cap(L // 1024)
         cap_g = _pow2_cap(L // 1536, lo=256)
-
-        # ONE upload, 2-bit packed: the assembly needs the raw reference
-        # bytes, so ship 4 bases/byte + an exception list for every byte
-        # that is not uppercase ACGT, rebuild the exact raw matrix on the
-        # device and derive the sweep codes from it. Dense exceptions
-        # (soft-masked genomes) upload the raw matrix instead. The chunked
-        # sweep packs and ships chunk by chunk, so the host packs chunk
-        # c + 1 while the card sweeps chunk c.
-        ref_mat = np.zeros((Q, L), dtype=np.uint8)
-        for q, r in enumerate(ref_seqs):
-            ref_mat[q, : len(r)] = np.frombuffer(r, dtype=np.uint8)
-        lengths_dev = torch.from_numpy(seq_lens).to(dev.device)
 
         # single-contig maps reuse the sweep's sorted query window keys as
         # the variant join's table (kernels/refine.py resolve_variants_core
@@ -318,7 +317,9 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
             and not opts.sbwt_build_opts.add_revcomp
         )
         pipelined = None
-        if use_chunked:
+        if chunk:
+            # the chunked sweep packs and ships chunk by chunk, so the host
+            # packs chunk c + 1 while the card sweeps chunk c
             pipelined = mapsweep.upload_sweep_chunked_pipelined(
                 dev.keys3, dev.rows_packed, ref_mat, seq_lens, k, chunk,
                 want_qtable=want_qt,
@@ -327,18 +328,10 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
             (ref_mat_dev, codes_dev, ms_dev, uniq_dev, rows_dev,
              seq_tables) = pipelined
         else:
-            packed_up = mapsweep.pack_ascii_host(ref_mat, seq_lens)
-            if packed_up is not None:
-                ref_mat_dev, codes_dev = mapsweep.decode_packed4_encode_device(
-                    *(torch.from_numpy(a).to(dev.device) for a in packed_up),
-                    lengths_dev,
-                )
-            else:
-                ref_mat_dev = torch.from_numpy(ref_mat).to(dev.device)
-                codes_dev = mapsweep.encode_ascii_device(ref_mat_dev)
+            ref_mat_dev, codes_dev = _upload(ref_mat, seq_lens, lengths_dev)
             # the join stage is cap-independent: the capacity-overflow
             # retry below re-runs only the postprocess stage
-            if use_chunked:
+            if chunk:
                 out = mapsweep.ms3_rows_sweep_chunked(
                     dev.keys3, dev.rows_packed, codes_dev, k, chunk,
                     want_qtable=want_qt,
@@ -371,3 +364,186 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
                 # grow only the overflowed capacity
                 cap_d = max(cap_d, _pow2_cap(o.need_d))
                 cap_g = max(cap_g, _pow2_cap(o.need_g))
+
+
+def _ref_matrix(ref_seqs: list[bytes], L: int) -> np.ndarray:
+    """The contigs' raw bytes as a zero-padded [Q, L] uint8 matrix."""
+    ref_mat = np.zeros((len(ref_seqs), L), dtype=np.uint8)
+    for q, r in enumerate(ref_seqs):
+        ref_mat[q, : len(r)] = np.frombuffer(r, dtype=np.uint8)
+    return ref_mat
+
+
+def _upload(ref_mat: np.ndarray, seq_lens: np.ndarray, lengths_dev):
+    """ONE upload of the padded [Q, L] reference matrix, 2-bit packed: the
+    assembly needs the raw reference bytes, so ship 4 bases/byte + an
+    exception list for every byte that is not uppercase ACGT, rebuild the
+    exact raw matrix on the device and derive the sweep codes from it.
+    Dense exceptions (soft-masked genomes) upload the raw matrix instead.
+    Returns (raw matrix, codes), both [Q, L] uint8 on the device of
+    ``lengths_dev``."""
+    device = lengths_dev.device
+    packed_up = mapsweep.pack_ascii_host(ref_mat, seq_lens)
+    if packed_up is not None:
+        return mapsweep.decode_packed4_encode_device(
+            *(torch.from_numpy(a).to(device) for a in packed_up), lengths_dev
+        )
+    ref_mat_dev = torch.from_numpy(ref_mat).to(device)
+    return ref_mat_dev, mapsweep.encode_ascii_device(ref_mat_dev)
+
+
+def _map_classic(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
+                 device=None) -> list[bytes]:
+    """The 2-bit map path (kbo_tpu/api.py ``_map_batch_sparse``, its
+    classic single-device branch): every k, any number of contigs.
+    :func:`map_batch` sends a batch here when :func:`map_route` says so;
+    ``ref_seqs`` are bytes and ``opts`` already checked against the index.
+
+    1. One packed upload; :func:`kernels.mapsweep.map_sweep_compact_core`
+       (the 2-bit join, derandomize_translate, the candidates compacted on
+       the device) and one :func:`kernels.mapsweep.fetch_candidates`, again
+       with exact capacities when the optimistic ones overflow.
+    2. Per contig on the host: an :class:`engine.SparseIntervals` over the
+       device MS row with ONE prefetch of the gap probe positions and the
+       anchor candidates together, then
+       :func:`refine.gap_filling.fill_gaps_patches` from those intervals
+       and :func:`call` with the intervals and the sweep's drops; gap
+       fills first, variant patches over them (one dict: last write wins).
+    3. :func:`kernels.mapsweep.assemble_map_core` lands the patches on the
+       device, :func:`kernels.mapsweep.fetch_delta_runs` fetches the delta
+       runs (again when they overflow), and the host paints them.
+
+    The host clock of each step goes to the run's stats: ``map_sweep``
+    (upload, sweep and candidate fetch), ``map_intervals`` (the
+    prefetches), ``map_gap_fill``, ``map_call``, ``map_assemble`` (with the
+    delta fetch), ``map_paint``.
+    """
+    k = query_sbwt.k
+    threshold = derandomize.random_match_threshold(
+        k, query_sbwt.n_kmers, 4, opts.max_error_prob
+    )
+    dev = engine.device_index(query_sbwt, device)
+    seq_lens = np.asarray([len(r) for r in ref_seqs], dtype=np.int32)
+    Q, L = len(ref_seqs), _bucket(int(seq_lens.max()))
+    ref_mat = _ref_matrix(ref_seqs, L)
+    lengths_dev = torch.from_numpy(seq_lens).to(dev.device)
+    total_bases = int(seq_lens.sum())
+    stats = get_stats()
+    with stage("map_sweep", bases=total_bases):
+        ref_mat_dev, codes_dev = _upload(ref_mat, seq_lens, lengths_dev)
+        (chars_dev, ms_dev, counts_dev, drop_pos_dev, gap_start_dev,
+         gap_end_dev) = mapsweep.map_sweep_compact_core(
+            dev.keys2, dev.cap2, codes_dev, lengths_dev, k, threshold
+        )
+
+        def fetch(cap_d, cap_g):
+            return mapsweep.fetch_candidates(
+                counts_dev, drop_pos_dev, gap_start_dev, gap_end_dev, cap_d,
+                cap_g,
+            ).cpu().numpy()
+
+        # optimistic capacities, as on the rows path
+        cap_d = _pow2_cap(L // 1024)
+        cap_g = _pow2_cap(L // 1536, lo=256)
+        packed = fetch(cap_d, cap_g)
+        counts = packed[:, :2]
+        if int(counts[:, 0].max()) > cap_d or int(counts[:, 1].max()) > cap_g:
+            cap_d = max(cap_d, _pow2_cap(int(counts[:, 0].max())))
+            cap_g = max(cap_g, _pow2_cap(int(counts[:, 1].max())))
+            packed = fetch(cap_d, cap_g)
+        packed = packed[:, 2:]
+
+    call_opts = CallOpts(max_error_prob=opts.max_error_prob,
+                         sbwt_build_opts=opts.sbwt_build_opts)
+    patch_pos: list[np.ndarray] = []
+    patch_val: list[np.ndarray] = []
+    unfilled_bases = 0
+    total_gap_runs = 0
+    for q, ref_seq in enumerate(ref_seqs):
+        n_ref = len(ref_seq)
+        nd, ng = int(counts[q, 0]), int(counts[q, 1])
+        drops = packed[q, :nd].astype(np.int64)
+        runs = list(zip(
+            packed[q, cap_d : cap_d + ng].tolist(),
+            packed[q, cap_d + cap_g : cap_d + cap_g + ng].tolist(),
+        ))
+        with stage("map_intervals"):
+            ivals = engine.SparseIntervals(
+                query_sbwt, encode_ascii(ref_seq), ms=ms_dev[q],
+                dev_codes=codes_dev[q],
+            )
+            # one union prefetch: the gap evaluator and the anchor rounds
+            # read from the provider's cache
+            probe_parts = []
+            if opts.fill_gaps and runs:
+                probe_parts.append(gap_filling.gap_probe_positions(
+                    runs, n_ref, k, threshold))
+            if opts.call_variants and drops.size:
+                # anchors need ms[j] >= threshold, which after a clean
+                # variant first happens near offset=threshold -- prefetch
+                # through threshold+16 so the 8-offset rounds hit cache
+                hi_off = min(threshold + 16, k)
+                cand = np.unique(
+                    (drops[:, None] + np.arange(1, hi_off + 1)[None, :])
+                    .reshape(-1)
+                )
+                probe_parts.append(cand[cand < n_ref])
+            if probe_parts:
+                ivals.prefetch(np.unique(np.concatenate(probe_parts)))
+        patches: dict[int, int] = {}
+        total_gap_runs += len(runs)
+        clamped_gap_bases = sum(
+            max(0, min(e, n_ref - threshold) - s) for s, e in runs
+        )
+        if opts.fill_gaps:
+            with stage("map_gap_fill"):
+                gp = gap_filling.fill_gaps_patches(
+                    runs, ivals, ref_seq, query_sbwt, threshold,
+                    opts.max_error_prob,
+                )
+            unfilled_bases += max(0, clamped_gap_bases - len(gp))
+            patches.update(gp)
+        else:
+            unfilled_bases += clamped_gap_bases
+        if opts.call_variants:
+            with stage("map_call"):
+                variants = call(query_sbwt, ref_seq, call_opts, ivals=ivals,
+                                drops=drops, device=dev.device)
+            patches.update(translate.variant_patches(variants))
+        if patches:
+            pp = np.fromiter(patches.keys(), dtype=np.int64)
+            patch_pos.append((pp + q * L).astype(np.int32))
+            patch_val.append(
+                np.fromiter(patches.values(), dtype=np.int64).astype(np.uint8)
+            )
+
+    with stage("map_assemble", bases=total_bases):
+        n_p = sum(p.size for p in patch_pos)
+        cap_p = _pow2_cap(max(n_p, 1))
+        pp = np.full(cap_p, Q * L, dtype=np.int32)  # out of range = inert
+        pv = np.zeros(cap_p, dtype=np.uint8)
+        if n_p:
+            pp[:n_p] = np.concatenate(patch_pos)
+            pv[:n_p] = np.concatenate(patch_val)
+        assembled = mapsweep.assemble_map_core(
+            chars_dev, ref_mat_dev, lengths_dev,
+            torch.from_numpy(pp).to(dev.device),
+            torch.from_numpy(pv).to(dev.device), bool(opts.format),
+        )
+        stats.add("gap_bases_unfilled", unfilled_bases)
+        # optimistic single fetch: deltas are run-encoded, so the count is
+        # bounded by patches (worst case one run each) + gap runs + a small
+        # margin for flank '-' stretches; a miss pays one refetch
+        cap_r = _pow2_cap(n_p + total_gap_runs + 256)
+        delta = mapsweep.fetch_delta_runs(*assembled, cap_r).cpu().numpy()
+        n_runs = int(delta[3, 0])
+        if n_runs > cap_r:
+            cap_r = _pow2_cap(n_runs)
+            delta = mapsweep.fetch_delta_runs(*assembled, cap_r).cpu().numpy()
+
+    with stage("map_paint"):
+        canvas, row_lens = _canvas(ref_seqs, Q, L, bool(opts.format), ref_mat)
+        _paint_runs(canvas, delta[0, :n_runs], delta[1, :n_runs],
+                    delta[2, :n_runs], L, row_lens)
+        return [canvas[q * L : q * L + row_lens[q]].tobytes()
+                for q in range(Q)]

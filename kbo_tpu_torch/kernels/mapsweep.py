@@ -21,6 +21,13 @@ through the query's index. Nothing full-length ever goes back to the host:
    reference* (map output is ~99.9% equal to the reference sequence); the
    host paints them onto a copy of the reference.
 
+Batches the rows join cannot take (k >= 128, or too many contigs even
+chunked) run the 2-bit path instead: :func:`map_sweep_compact_core` (the
+2-bit join, derandomize/translate and the compacted candidates), one
+:func:`fetch_candidates`, the host refinement over sparse colex intervals
+(kbo_tpu_torch.api._map_classic), :func:`assemble_map_core` and one
+:func:`fetch_delta_runs`.
+
 kbo_tpu writes the per-contig parts for one row and maps them with
 ``jax.vmap``; here the batch dimension is written out.
 """
@@ -31,7 +38,7 @@ import numpy as np
 import torch
 
 from kbo_tpu_torch import native
-from kbo_tpu_torch.kernels.ms import INVALID, ms3_rows_core
+from kbo_tpu_torch.kernels.ms import INVALID, ms2_core, ms3_rows_core
 from kbo_tpu_torch.kernels.postprocess import derandomize_translate
 
 _BIG32 = 2**31 - 1
@@ -335,36 +342,18 @@ def upload_sweep_chunked_pipelined(keys3, ref_packed, ref_mat, lengths,
     return ref_mat_dev, codes_dev, ms, uniq, rows, qtables
 
 
-def map_postprocess3_core(ms, uniq, rows, lengths, k: int, threshold: int,
-                          cap_d: int, cap_g: int, w_grid: int | None = None):
-    """Stage 2 of the map sweep: derandomize/translate, candidate
-    compaction, device-side variant anchors and gap unique-context grids
-    from the dense stage-1 outputs.
+def _candidates(ms, chars, lengths, t: int, cap_d: int, cap_g: int):
+    """The refinement candidates of a sweep's [Q, L] MS and chars,
+    compacted on the device: MS drop sites (variant calling) and gap runs
+    of the translation (gap filling).
 
-    Returns (chars uint8 [Q, L] -- device-resident;
-    packed int32 [Q, 2 + cap_d + 2*cap_g + 2*cap_d + cap_g*w_grid];
-    pieces): per row of ``packed``: n_drops, n_gaps, drop positions, gap
-    starts, gap ends, anchor positions (-1 = none; reference anchor rule,
-    src/variant_calling.rs:271-272), anchor colex rows, then the gap
-    unique-context grid (colex row at search_lo_g + c when unique, else -1;
-    src/gap_filling.rs:127-151, :466-478). ``pieces`` holds the same
-    candidate tables as separate device tensors, for the on-device
-    refinement.
-
-    ``w_grid`` is the candidate-window width: the reference's search window
-    is [end+t, min(end+radius, n-1)] with radius <= k, so its width never
-    exceeds k - threshold + 1; callers that know the integer threshold pass
-    that (the k+1 default is the thresholdless upper bound). Positions
-    beyond the true window are -1 either way.
+    Returns (counts int32 [Q, 2] = (n_drops, n_gaps), drop_pos [Q, cap_d],
+    gap_start [Q, cap_g] ascending and padded with BIG, gap_end_at
+    [Q, cap_g] the run end aligned with each start, start_mask [Q, L] and
+    nnd [Q, L] (:func:`_next_nondash` of the translation's dashes)).
     """
     Q, L = ms.shape
-    assert k < 128, "packed probe word carries ms in 7 bits"
-    if w_grid is None:
-        w_grid = k + 1
     dev = ms.device
-    t = int(threshold)
-    chars = derandomize_translate(ms, k, t, lengths)
-
     idx = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
     n_q = lengths.to(torch.int32)[:, None]
     in_len = idx < n_q
@@ -403,6 +392,95 @@ def map_postprocess3_core(ms, uniq, rows, lengths, k: int, threshold: int,
         ],
         dim=1,
     )
+    return counts, drop_pos, gap_start, gap_end_at, start_mask, nnd
+
+
+def map_sweep_compact_core(keys2, cap2, codes, lengths, k: int,
+                           threshold: int):
+    """The 2-bit map sweep with the candidates compacted on the device: the
+    sweep of every k (the rows join needs k < 128) and of batches past the
+    rows join's slot budget.
+
+    codes: uint8 [Q, L] tail-padded with INVALID; lengths: int32 [Q] on the
+    same device. :func:`kbo_tpu_torch.kernels.ms.ms2_core` over the
+    sentinel-padded [Q, L + k - 1] buffer, then one
+    :func:`derandomize_translate` (kbo_tpu's derandomize_core +
+    translate_core), then the drop and gap-run masks, compacted and counted.
+
+    Returns (chars uint8 [Q, L], ms int32 [Q, L], counts int32 [Q, 2] =
+    (n_drops, n_gaps), drop_pos int32 [Q, L], gap_start int32 [Q, L],
+    gap_end_at int32 [Q, L]): positions ascending and padded with BIG,
+    ``gap_end_at[q, j]`` the end of the run starting at ``gap_start[q, j]``.
+    Everything stays on the device; :func:`fetch_candidates` fetches
+    count-sized slices. ``chars`` is 0 past each row's length.
+    """
+    Q, L = codes.shape
+    pad = torch.full((Q, k - 1), INVALID, dtype=torch.uint8,
+                     device=codes.device)
+    buf = torch.cat([pad, codes], dim=1).reshape(-1)
+    ms = ms2_core(keys2, cap2, buf, k).reshape(Q, L + k - 1)[:, k - 1 :]
+    chars = derandomize_translate(ms, k, threshold, lengths)
+    counts, drop_pos, gap_start, gap_end_at, _, _ = _candidates(
+        ms, chars, lengths, int(threshold), L, L
+    )
+    return chars, ms, counts, drop_pos, gap_start, gap_end_at
+
+
+def fetch_candidates(counts, drop_pos, gap_start, gap_end_at, cap_d: int,
+                     cap_g: int):
+    """The compacted candidate arrays of :func:`map_sweep_compact_core`
+    sliced to the capacities and packed with the counts: int32
+    [Q, 2 + cap_d + 2 * cap_g] = (n_drops, n_gaps, drop positions, gap
+    starts, gap ends), one fetch. The caller checks the counts against the
+    capacities and fetches again with larger ones when they overflow. A
+    row shorter than a capacity (a reference under the slot floor) pads
+    with BIG, so the caller's fixed offsets stay aligned."""
+    return torch.cat(
+        [
+            counts,
+            _pad_slots(drop_pos, cap_d),
+            _pad_slots(gap_start, cap_g),
+            _pad_slots(gap_end_at, cap_g),
+        ],
+        dim=1,
+    )
+
+
+def map_postprocess3_core(ms, uniq, rows, lengths, k: int, threshold: int,
+                          cap_d: int, cap_g: int, w_grid: int | None = None):
+    """Stage 2 of the map sweep: derandomize/translate, candidate
+    compaction, device-side variant anchors and gap unique-context grids
+    from the dense stage-1 outputs.
+
+    Returns (chars uint8 [Q, L] -- device-resident;
+    packed int32 [Q, 2 + cap_d + 2*cap_g + 2*cap_d + cap_g*w_grid];
+    pieces): per row of ``packed``: n_drops, n_gaps, drop positions, gap
+    starts, gap ends, anchor positions (-1 = none; reference anchor rule,
+    src/variant_calling.rs:271-272), anchor colex rows, then the gap
+    unique-context grid (colex row at search_lo_g + c when unique, else -1;
+    src/gap_filling.rs:127-151, :466-478). ``pieces`` holds the same
+    candidate tables as separate device tensors, for the on-device
+    refinement.
+
+    ``w_grid`` is the candidate-window width: the reference's search window
+    is [end+t, min(end+radius, n-1)] with radius <= k, so its width never
+    exceeds k - threshold + 1; callers that know the integer threshold pass
+    that (the k+1 default is the thresholdless upper bound). Positions
+    beyond the true window are -1 either way.
+    """
+    Q, L = ms.shape
+    assert k < 128, "packed probe word carries ms in 7 bits"
+    if w_grid is None:
+        w_grid = k + 1
+    dev = ms.device
+    t = int(threshold)
+    chars = derandomize_translate(ms, k, t, lengths)
+
+    counts, drop_pos, gap_start, gap_end_at, start_mask, nnd = _candidates(
+        ms, chars, lengths, t, cap_d, cap_g
+    )
+    idx = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    n_q = lengths.to(torch.int32)[:, None]
     # per-contig clamped gap bases over ALL runs (incl. any beyond the slot
     # capacities): sum of max(0, min(run_end, n - t) - start) -- feeds the
     # unfilled-bases stat when gap filling is off
@@ -538,6 +616,21 @@ def _emit_deltas(flat, ref_ascii, lengths, fmt: bool, cap: int | None = None):
     return torch.stack([n_runs, checksum]), run_start, run_end, run_val
 
 
+def assemble_map_core(chars, ref_ascii, lengths, patch_pos, patch_val,
+                      fmt: bool):
+    """Patch the device-resident translation and emit the output as delta
+    runs (:func:`_emit_deltas`, full width: the run arrays are Q*L long
+    and :func:`fetch_delta_runs` slices them).
+
+    patch_pos: int32 [P] global flat positions q*L+i, unique (a host dict's
+    keys), out of [0, Q*L) = inert; patch_val: uint8 [P]. The patches land
+    through :func:`assemble_map_prio_core` at one priority (a scatter-max,
+    never an indexed store)."""
+    pv = (1 << 8) | patch_val.to(torch.int32)
+    return assemble_map_prio_core(chars, ref_ascii, lengths, [patch_pos],
+                                  [pv], fmt)
+
+
 def assemble_map_prio_core(chars, ref_ascii, lengths, pos_grids,
                            prio_val_grids, fmt: bool, cap: int | None = None):
     """Priority-ordered patch application + delta emission.
@@ -585,3 +678,11 @@ def fetch_delta_runs_extras(counts, run_start, run_end, run_val, extras,
         return row
 
     return torch.stack([fit(run_start), fit(run_end), fit(run_val), crow])
+
+
+def fetch_delta_runs(counts, run_start, run_end, run_val, cap: int):
+    """Slice the delta runs to ``cap`` and pack them with the (n_runs,
+    checksum) counts as one int32 [4, cap] tensor (row 3 holds the counts).
+    The caller fetches again with a larger cap when n_runs exceeds it."""
+    return fetch_delta_runs_extras(counts, run_start, run_end, run_val,
+                                   counts.new_zeros(0), cap)

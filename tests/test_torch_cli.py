@@ -27,6 +27,7 @@ from kbo_tpu_torch.cli import main
 from kbo_tpu_torch.index import sbwt_format as tfmt
 from kbo_tpu_torch.index import serialize as tser
 from kbo_tpu_torch.index.encode import encode_ascii
+from kbo_tpu_torch.io.fastx import read_fastx
 from kbo_tpu_torch.ops.ms import query_ms_codes
 
 torch.set_num_threads(2)
@@ -149,6 +150,21 @@ def test_cli_map_equals_kbo_tpu(genome_pair, capsys):
     assert got == want
     lines = got.splitlines()
     assert lines[0] == ">query.fasta" and len(lines[1]) == 3000
+
+
+def test_cli_map_k151_equals_api(genome_pair, capsys):
+    """map -k 151 (the 2-bit map path) prints the API's map_batch output
+    for both reference contigs."""
+    ref, q, _ = genome_pair
+    got = _run(["map", "-r", str(ref), str(q), "-k", "151"], capsys)
+    contigs = [seq for _, seq in read_fastx(str(ref))]
+    bo = kbo_tpu_torch.BuildOpts(k=151, build_select=True)
+    idx = kbo_tpu_torch.build(
+        [seq for _, seq in read_fastx(str(q))], bo)
+    want = kbo_tpu_torch.map_batch(
+        contigs, idx, kbo_tpu_torch.MapOpts(sbwt_build_opts=bo), device="cpu")
+    assert got == ">query.fasta\n" + "".join(a.decode() + "\n" for a in want)
+    assert [len(line) for line in got.splitlines()[1:]] == [3000, 800]
 
 
 @pytest.mark.parametrize("fmt", ["npz", "sbwt"])

@@ -686,3 +686,73 @@ def test_fill_gaps_sparse_intervals_on_card(cuda):
         iv = engine.SparseIntervals(idx, codes, ms=row)
         out.append(gap_filling.fill_gaps(tr, ms, iv, ref, idx, t, 1e-7))
     assert out[0] == out[1] and out[0] != tr
+
+
+def _classic_pair(n=20_000):
+    """A reference and its indexed query for the 2-bit map path: a SNP
+    every 300 bases, a 3-base deletion, a 40-base stretch of noise."""
+    rng = np.random.default_rng(254)
+    ref = BASES[rng.integers(0, 4, n)].tobytes()
+    query = bytearray(ref)
+    for p in range(150, n - 150, 300):
+        query[p] = BASES[(np.searchsorted(BASES, query[p]) + 1) % 4]
+    del query[n // 2 : n // 2 + 3]
+    query[n // 3 : n // 3 + 40] = BASES[rng.integers(0, 4, 40)].tobytes()
+    return ref, bytes(query)
+
+
+def test_map_sweep_compact_254_on_card(cuda):
+    """The 2-bit map sweep at k = 254 (16 key words: 17 merge rows, 16
+    scan rows) on the card equals its CPU twin: one merge, two scans, one
+    derandomize_translate."""
+    from kbo_tpu_torch.kernels.mapsweep import map_sweep_compact_core
+    from kbo_tpu_torch.ops.derandomize import random_match_threshold
+
+    ref, query = _classic_pair()
+    idx = kbo_tpu_torch.build([query], kbo_tpu_torch.BuildOpts(k=254))
+    t = random_match_threshold(254, idx.n_kmers, 4, 1e-7)
+    contigs = [ref[:12_000], ref[12_000:], ref[5000:5200]]
+    codes = np.full((3, 12_288), 255, np.uint8)
+    for q, c in enumerate(contigs):
+        codes[q, : len(c)] = encode_ascii(c)
+    lengths = np.asarray([len(c) for c in contigs], np.int32)
+    out = {}
+    for device in (cuda, "cpu"):
+        dev = device_index(idx, device)
+        assert dev.keys2.shape[0] == 16
+        before = (merge_path.launches, clamp_scan.launches,
+                  derandomize_translate.launches)
+        out[device] = [x.cpu() for x in map_sweep_compact_core(
+            dev.keys2, dev.cap2, torch.from_numpy(codes).to(device),
+            torch.from_numpy(lengths).to(device), 254, t)]
+        if device is cuda:
+            torch.cuda.synchronize()
+            assert (merge_path.launches, clamp_scan.launches,
+                    derandomize_translate.launches) == (
+                before[0] + 1, before[1] + 2, before[2] + 1)
+    got, want = out[cuda], out["cpu"]
+    assert torch.equal(got[2], want[2]) and int(got[2].sum()) > 40
+    for q, n in enumerate(lengths):
+        assert torch.equal(got[0][q, :n], want[0][q, :n])
+        assert not got[0][q, n:].any()  # the kernel writes 0 past n
+        assert torch.equal(got[1][q, :n], want[1][q, :n])
+    for g, w in zip(got[3:], want[3:]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("fmt", [True, False])
+def test_map_254_on_card_equals_cpu(cuda, fmt):
+    """map_ at k = 254 with the default refinements (the 2-bit sweep, the
+    host refinement over intervals of 27 merge rows, call's 26-word
+    vs-sequence scans) on the card equals the CPU run."""
+    ref, query = _classic_pair()
+    bo = kbo_tpu_torch.BuildOpts(k=254, build_select=True)
+    idx = kbo_tpu_torch.build([query], bo)
+    opts = kbo_tpu_torch.MapOpts(format=fmt, sbwt_build_opts=bo)
+    merge_path.launches = clamp_scan.launches = 0
+    got = kbo_tpu_torch.map_(ref, idx, opts, device=cuda)
+    # the sweep's merge, the interval probe's, the call's joins
+    assert merge_path.launches >= 2 and clamp_scan.launches >= 4
+    want = kbo_tpu_torch.map_(ref, idx, opts, device="cpu")
+    assert got == want and len(got) == len(ref)
+    assert (b"-" in got) if fmt else (set(got) - set(b"MX-R"))

@@ -19,6 +19,7 @@ from kbo_tpu import api as japi
 from kbo_tpu_torch import api as tapi
 from kbo_tpu_torch.kernels import mapsweep as tmap
 from kbo_tpu_torch.kernels import ms as tms
+from kbo_tpu_torch.kernels import refine as refine_kernels
 from kbo_tpu_torch.refine import device_map
 from kbo_tpu_torch.utils.stats import get_stats, reset_stats
 
@@ -246,16 +247,20 @@ def test_map_other_paths_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             kbo_tpu_torch.map_(b"ACGTACGTAGG", tidx, _opts(kbo_tpu_torch, True))
-    assert tapi.max_tag(31) == 1 << 30
+    assert refine_kernels.max_tag(31) == 1 << 30
     with pytest.raises(ValueError, match="sbwt_build_opts.k"):
         kbo_tpu_torch.map_(b"ACGTACGTAGG", tidx, kbo_tpu_torch.MapOpts(),
                            device="cpu")
+    # k >= 128 takes the 2-bit sweep (tests/test_torch_map_classic.py)
     big = kbo_tpu_torch.build([b"ACGT" * 40 + b"GATTACA"],
                               kbo_tpu_torch.BuildOpts(k=128))
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        kbo_tpu_torch.map_(b"ACGT" * 40, big,
-                           kbo_tpu_torch.MapOpts(call_variants=False),
-                           device="cpu")
+    jbig = kbo_tpu.build([b"ACGT" * 40 + b"GATTACA"], kbo_tpu.BuildOpts(k=128))
+    got = kbo_tpu_torch.map_(b"ACGT" * 40, big,
+                             kbo_tpu_torch.MapOpts(call_variants=False),
+                             device="cpu")
+    assert got == japi.map_batch([b"ACGT" * 40], jbig,
+                                 kbo_tpu.MapOpts(call_variants=False))[0]
+    assert len(got) == 160
 
 
 def test_paint_runs_and_canvas():
