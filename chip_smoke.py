@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py [--genome BASES]
 
+(``--mesh-worker OUT`` runs one process of phase 6c's two-process run.)
+
 Phases, each printed as it passes; any failure exits non-zero:
 
 1. probe: a CUDA device must exist (no CPU fallback); prints the card's
@@ -100,6 +102,22 @@ Phases, each printed as it passes; any failure exits non-zero:
    pair written as FASTA (call, find, find --device-index, map, build -o
    then find -i), each verb's output equal to the rows formatted from the
    API's results;
+6c. the mesh (kbo_tpu_torch.parallel.mesh) on the card: make_mesh(4,
+   device="cuda:0"), four shards on the one card, and with two or more
+   cards a mesh over all of them: api.find_batch 512x4096 over it
+   (max_gap_len 0 and 5), matches_long_sharded over the streamed side,
+   api.call at k=51, api.map_batch([genome]) with MapOpts() (the
+   sequence-sharded route) format true and false and the 8-contig
+   map_batch (the contig-sharded route), each equal to its single-device
+   twin above byte for byte, with launch counts and the route (run stats)
+   around each call on the four-shard mesh; the 8-contig map_batch at
+   k=151 over it once (the classic mesh route) equal to phase 5b's; the
+   kernels at the four-shard mesh's shapes (captured: a find_batch shard,
+   a stage-1 chunk and a per-shard variant join of the sequence-sharded
+   map, a shard of the 8-contig batch) against their plain versions; two
+   processes on the one card (this script with --mesh-worker, joined by a
+   gloo group): matches_batch_sharded over the 2 x 2 global mesh and the
+   per-process map merge, both digests equal to one process's;
 7. times on the card (CUDA events or the host clock, medians of 7, of 3
    for gap filling's host numpy at full width; by
    stage, the refinement's stages and the per-index extension table
@@ -113,7 +131,8 @@ Phases, each printed as it passes; any failure exits non-zero:
    the device grid's, patch for patch; each CLI verb; the 2-bit map path
    at k=151 by the host clock, by its host steps from the run's stats and
    by device stage, the k=254 and 8-contig maps, the k=51 2-bit flow
-   beside the default route, the over-budget sweep), each with the card's
+   beside the default route, the over-budget sweep; each mesh call
+   beside its single-device twin, the k=151 one once), each with the card's
    name and power limit, then one torch.profiler run of each workload (and
    of one bitonic merge and one bitonic sort, by pass kind): device busy
    share and the kernels that take the time.
@@ -130,6 +149,7 @@ import io
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -191,10 +211,80 @@ def _workload(n: int):
     return ref, bytes(query)
 
 
+def _mesh_digests(mesh, rank):
+    """The two-process run's digests over ``mesh``: sha256 of
+    matches_batch_sharded's chars for 63 queries of 1500 bases against a
+    200 kbase index (k = 31), and of the per-process map merge: each
+    process's half of four 20 kbase contigs through map_batch with
+    MapOpts() on cuda:0, the halves' digests gathered in process order
+    (``rank`` None: one process computes both halves)."""
+    import hashlib
+
+    from kbo_tpu_torch import BuildOpts, MapOpts, api
+    from kbo_tpu_torch.index.encode import encode_ascii
+    from kbo_tpu_torch.ops.derandomize import random_match_threshold
+    from kbo_tpu_torch.parallel import distributed, mesh as pmesh
+
+    rng = np.random.default_rng(21)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    genome = bases[rng.integers(0, 4, 200_000)].tobytes()
+    bo = BuildOpts(k=31, build_select=True)
+    index = api.build([genome], bo)
+    thr = random_match_threshold(31, index.n_kmers, 4, 1e-7)
+    queries = []
+    for i in range(63):
+        q = bytearray(genome[i * 3001 : i * 3001 + 1500])
+        q[700] = bases[(bases.tolist().index(q[700]) + 1) % 4]
+        queries.append(encode_ascii(bytes(q)))
+    chars = pmesh.matches_batch_sharded(index, queries, thr, mesh=mesh)
+    refs = []
+    for i in range(4):
+        r = bytearray(genome[i * 45_000 : i * 45_000 + 20_000])
+        for p in range(300, 20_000, 1700):
+            r[p] = bases[(bases.tolist().index(r[p]) + 1) % 4]
+        refs.append(bytes(r))
+
+    def half(r):
+        out = api.map_batch(refs[r::2], index, MapOpts(sbwt_build_opts=bo),
+                            device="cuda:0")
+        return np.frombuffer(hashlib.sha256(b"".join(out)).digest(), np.uint8)
+
+    if rank is None:
+        merged = np.stack([half(0), half(1)])
+    else:
+        merged = distributed.process_allgather(half(rank))
+    return [hashlib.sha256(b"".join(c.tobytes() for c in chars)).hexdigest(),
+            hashlib.sha256(merged.tobytes()).hexdigest()]
+
+
+def _mesh_worker(out_path: str) -> int:
+    """One process of chip_smoke's two-process mesh run (torchrun's
+    environment names the group): a 2-shard mesh on cuda:0 here, 4 shards
+    over both processes."""
+    import torch.distributed as dist
+
+    from kbo_tpu_torch.parallel import distributed, mesh as pmesh
+
+    if not distributed.initialize_from_env():
+        return 1
+    mesh = pmesh.make_mesh(2, device="cuda:0")
+    if mesh.devices.size != 4:
+        return 1
+    digests = _mesh_digests(mesh, distributed.process_index())
+    with open(out_path, "w") as fh:
+        fh.write("\n".join(digests))
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--genome", type=float, default=4.6e6)
+    ap.add_argument("--mesh-worker", metavar="OUT",
+                    help="run one process of the two-process mesh run")
     args = ap.parse_args()
+    if args.mesh_worker:
+        return _mesh_worker(args.mesh_worker)
 
     import torch
 
@@ -253,6 +343,7 @@ def main() -> int:
         u32,
     )
     from kbo_tpu_torch.ops.derandomize import random_match_threshold
+    from kbo_tpu_torch.parallel import mesh as pmesh
     from kbo_tpu_torch.pipeline import pad_batch
     from kbo_tpu_torch.refine import gap_filling
     from kbo_tpu_torch.refine.device_map import _pow2_cap, map_devref_finish
@@ -1687,6 +1778,237 @@ def main() -> int:
           f"map, build -o then find -i ({len(header) - 1} TSV rows) equal the "
           f"rows formatted from the API's results", flush=True)
 
+    # ---- 6c. the mesh on the card: four shards on the one card (and every
+    # card when there are two or more), each call against its single-device
+    # twin above, byte for byte; launch counts and the route around each
+    # call on the four-shard mesh, and the kernels at its per-shard shapes
+    nsh = 4
+    meshes = {"4 shards on cuda:0": pmesh.make_mesh(nsh, device="cuda:0")}
+    if torch.cuda.device_count() >= 2:
+        meshes[f"{torch.cuda.device_count()} cards"] = pmesh.make_mesh()
+    print(f"mesh: {', '.join(meshes)} ({torch.cuda.device_count()} card(s) "
+          f"visible)", flush=True)
+    mesh_names = [(ms_mod, "merge_path"), (ms_mod, "clamp_scan"),
+                  (pipeline_mod, "derandomize_translate"),
+                  (mapsweep, "derandomize_translate")]
+    mesh_args, mesh_routes, mesh_first_ms = {}, {}, {}
+
+    def per_shard(m):
+        return {**ONE_JOIN, "merge_path": m.devices.size,
+                "clamp_scan": 2 * m.devices.size,
+                "derandomize_translate": m.devices.size}
+
+    def mesh_run(path, fn, want, m):
+        """One call over mesh m: its output, with the launches held to
+        want (a dict, or a function of the launches and the run's stats
+        that says what is wrong) and the route its stats name, on the
+        four-shard mesh."""
+        reset_counts()
+        reset_stats()
+        t = time.perf_counter()
+        out, args = capture(fn, mesh_names)
+        torch.cuda.synchronize()
+        ms_first = (time.perf_counter() - t) * 1e3
+        got = {name: f.launches for name, f in counters.items()}
+        stats = get_stats().as_dict()
+        route = [key for key in stats if key.startswith("mesh_")]
+        if m is meshes["4 shards on cuda:0"]:
+            bad = want(got, stats) if callable(want) else (
+                None if got == want else f"expected {want}")
+            if bad:
+                raise SystemExit(f"FAIL launches on the {path} path: {got}, "
+                                 f"{bad}")
+            launches[path], mesh_args[path] = got, args
+            mesh_routes[path], mesh_first_ms[path] = route, ms_first
+        return out, stats
+
+    t6c = time.perf_counter()
+    fo5 = FindOpts(max_gap_len=5)
+    rle_gap_gpu = api.find_batch(q_list, index, fo5, device=cuda)
+    long_chars, long_ms = pipeline_mod.matches_ms_batch(index, [codes],
+                                                        threshold, cuda)
+    if not np.array_equal(long_ms[0], ms_gpu[K - 1 : K - 1 + n].cpu().numpy()):
+        raise SystemExit("FAIL the single-device pipeline's MS differs from "
+                         "find-core's")
+    for mname, m in meshes.items():
+        nd = m.devices.size
+        got, _ = mesh_run("find_batch mesh", lambda: api.find_batch(
+            q_list, index, FindOpts(), mesh=m), per_shard(m), m)
+        if got != rle_gpu:
+            raise SystemExit(f"FAIL find_batch over the mesh ({mname}) differs "
+                             "from the single-device call")
+        got, _ = mesh_run("find_batch mesh max_gap_len=5", lambda: api.find_batch(
+            q_list, index, fo5, mesh=m), per_shard(m), m)
+        if got != rle_gap_gpu:
+            raise SystemExit(f"FAIL find_batch max_gap_len=5 over the mesh "
+                             f"({mname}) differs from the single-device call")
+        (ch, msl), _ = mesh_run("matches_long_sharded", lambda: pmesh.
+                                matches_long_sharded(index, codes, threshold, m),
+                                per_shard(m), m)
+        if not (np.array_equal(msl, long_ms[0])
+                and np.array_equal(ch, long_chars[0])):
+            raise SystemExit(f"FAIL matches_long_sharded ({mname}) differs "
+                             "from the single-device pipeline and find-core's "
+                             "MS")
+
+        def call_counts(got, st):
+            # the row's join, one interval join per anchor round, the k-mer
+            # batch on every shard; two scans each for the row's join and
+            # the k-mer batches, two for the vs-sequence join
+            rounds = st["call_anchor_rounds"]
+            want = {**ONE_JOIN, "merge_path": 1 + rounds + nsh,
+                    "clamp_scan": 4 + 2 * nsh, "derandomize_translate": 0}
+            return None if got == want else f"expected {want}"
+
+        got, _ = mesh_run("call mesh", lambda: api.call(
+            index, ref, copts(), mesh=m), call_counts, m)
+        if tuples(got) != tuples(call_gpu):
+            raise SystemExit(f"FAIL call over the mesh ({mname}) differs from "
+                             "the single-device call")
+        # the sequence-sharded map: stage 1 and the variant join's table on
+        # every shard, the postprocess once
+        seq_want = {**ONE_JOIN, "merge_path": 2 * nd, "clamp_scan": 4 * nd}
+        for fmt in (True, False):
+            got, st = mesh_run(f"map_batch mesh format={fmt}",
+                               lambda: api.map_batch([ref], index, dopts(fmt),
+                                                     mesh=m), seq_want, m)
+            if got != [dmap_gpu[fmt]]:
+                raise SystemExit(f"FAIL map_batch([genome]) over the mesh "
+                                 f"({mname}) format={fmt} differs from map_")
+            if st["variants_called"] != dstats[fmt]["variants_called"] or \
+                    st["gaps_filled"] != dstats[fmt]["gaps_filled"]:
+                raise SystemExit("FAIL map_batch over the mesh: counters "
+                                 "differ from map_'s")
+
+        def batch_counts(got, st):
+            # the contig-sharded route: a sweep, a postprocess and a variant
+            # join per shard; the classic one after a degrade: more
+            if "mesh_route_data" in st:
+                want = {**ONE_JOIN, "merge_path": 2 * nsh,
+                        "clamp_scan": 4 * nsh, "derandomize_translate": nsh}
+                return None if got == want else f"expected {want}"
+            return None if got["merge_path"] >= 2 * nsh else "too few merges"
+
+        got, _ = mesh_run("map_batch mesh 8 contigs", lambda: api.map_batch(
+            contigs_of(ref), index, dopts(True), mesh=m), batch_counts, m)
+        if got != dbatch_gpu:
+            raise SystemExit(f"FAIL the 8-contig map_batch over the mesh "
+                             f"({mname}) differs from the single-device call")
+    print(f"mesh: find_batch[{QN}x{QL}] (max_gap_len 0 and 5), "
+          f"matches_long_sharded over {n} bases, call, map_batch([genome]) "
+          f"format true and false and the 8-contig map_batch equal their "
+          f"single-device twins on {', '.join(meshes)}; routes "
+          f"{json.dumps(mesh_routes)}; launches "
+          f"{json.dumps({p: launches[p] for p in mesh_routes})}", flush=True)
+
+    # the classic mesh route once (k = 151: the host refinement, about 3 s)
+    def classic_mesh_counts(got, st):
+        # the sweep on every shard, then per contig the interval probe's
+        # join(s) and call's k-mer batch on every shard, its vs-sequence join
+        c = len(contigs)
+        want_scans = 2 * nsh + c * (2 * nsh + 2)
+        if got["clamp_scan"] != want_scans or \
+                got["derandomize_translate"] != nsh or \
+                got["merge_path"] < nsh + c * (1 + nsh):
+            return f"expected {want_scans} scans, {nsh} derandomize_" \
+                   f"translate, {nsh + c * (1 + nsh)} or more merges"
+        return None
+
+    m4 = meshes["4 shards on cuda:0"]
+    got, _ = mesh_run(f"map_batch mesh k={K151}", lambda: api.map_batch(
+        contigs, idx151, opts151(True), mesh=m4), classic_mesh_counts, m4)
+    if got != cbatch_gpu:
+        raise SystemExit(f"FAIL the 8-contig map_batch at k={K151} over the "
+                         "mesh differs from the single-device call")
+    print(f"mesh: map_batch[8x{len(contigs[0])}] k={K151} over 4 shards "
+          f"(route {mesh_routes[f'map_batch mesh k={K151}']}) equals the "
+          f"single-device call; {mesh_first_ms[f'map_batch mesh k={K151}']:.1f}"
+          f" ms (one run, host clock)", flush=True)
+
+    # the kernels at the four-shard mesh's shapes, against their plain
+    # versions: a shard of the find batch, a chunk of the sequence-sharded
+    # map's stage 1 and its per-shard variant join, a shard of the contig-
+    # sharded batch
+    ma = mesh_args
+    mesh_shapes = {
+        "mesh batch shard": ma["find_batch mesh"]["merge_path"][0],
+        "mesh seq chunk": ma["map_batch mesh format=True"]["merge_path"][0],
+        "mesh seq variant join":
+            ma["map_batch mesh format=True"]["merge_path"][nsh],
+        "mesh 8-contig shard":
+            ma["map_batch mesh 8 contigs"]["merge_path"][0],
+    }
+    mesh_scans = {
+        "mesh batch shard": ma["find_batch mesh"]["clamp_scan"][0],
+        "mesh seq chunk": ma["map_batch mesh format=True"]["clamp_scan"][0],
+        "mesh seq variant join":
+            ma["map_batch mesh format=True"]["clamp_scan"][2 * nsh],
+        "mesh 8-contig shard":
+            ma["map_batch mesh 8 contigs"]["clamp_scan"][0],
+    }
+    mesh_dt = {"mesh batch shard":
+               ma["find_batch mesh"]["derandomize_translate"][0]}
+    if ma["map_batch mesh 8 contigs"]["derandomize_translate"]:
+        mesh_dt["mesh 8-contig shard"] = \
+            ma["map_batch mesh 8 contigs"]["derandomize_translate"][0]
+    for label, ops in mesh_shapes.items():
+        check("merge_path", f"{label} W={ops[0].shape[0]} "
+              f"na={ops[0].shape[1]} nb={ops[2].shape[1]}",
+              merge_path(*ops), merge_path_plain(*ops))
+    for label, (sw, cp, bits) in mesh_scans.items():
+        for rev in (False, True):
+            check("clamp_scan", f"{label} bits={bits} W={sw.shape[0]} "
+                  f"reverse={rev} M={sw.shape[1]}",
+                  [clamp_scan(sw, cp, bits, rev)],
+                  [clamp_scan_plain(sw, cp, bits, rev)])
+    for label, (dms, _k, _t, dtl) in mesh_dt.items():
+        check_dt(f"{label} {dms.shape[0]}x{dms.shape[1]} (strided rows)", dms,
+                 dtl)
+    del ma
+
+    # two processes on the one card, joined by a gloo group: each brings a
+    # 2-shard mesh on cuda:0, matches_batch_sharded runs over the 4-shard
+    # global mesh, and map_batch's per-process halves merge with one
+    # process_allgather; both must write the single process's digests
+    t = time.perf_counter()
+    want_digests = _mesh_digests(pmesh.make_mesh(4, device="cuda:0"), None)
+    with tempfile.TemporaryDirectory() as tmp:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        outs = [os.path.join(tmp, f"digests_{r}.txt") for r in range(2)]
+        here = os.path.dirname(os.path.abspath(__file__))
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+             outs[r]],
+            env=dict(os.environ, WORLD_SIZE="2", RANK=str(r),
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                     PYTHONPATH=here + os.pathsep
+                     + os.environ.get("PYTHONPATH", "")),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ) for r in range(2)]
+        try:
+            for r, proc in enumerate(procs):
+                out, err = proc.communicate(timeout=300)
+                if proc.returncode != 0:
+                    raise SystemExit(f"FAIL mesh worker {r} exited "
+                                     f"{proc.returncode}: {err[-2000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        got_digests = [open(o).read().split() for o in outs]
+    if got_digests[0] != got_digests[1] or got_digests[0] != want_digests:
+        raise SystemExit(f"FAIL the two-process mesh run's digests "
+                         f"{got_digests} differ from one process's "
+                         f"{want_digests}")
+    print(f"mesh: two processes on the one card (gloo, 2 x 2 shards): "
+          f"matches_batch_sharded and the per-process map merge equal one "
+          f"process's digests ({time.perf_counter() - t:.1f}s with the "
+          f"children's start); phase 6c {time.perf_counter() - t6c:.1f}s",
+          flush=True)
+
     # ---- 7. times on the card
     def dev_ms(fn):
         fn()
@@ -1757,7 +2079,7 @@ def main() -> int:
             print(f"{tag} map_ {label} format={fmt}: {t_map:.3f} ms "
                   f"({n / t_map * 1e3 / 1e6:.2f} Mbases/s) over {n} bases, "
                   f"host clock around the call", flush=True)
-        t_mb = host_ms(
+        t_mb = t_maps[label, "batch"] = host_ms(
             lambda: api.map_batch(contigs, index, opts_of(True), device=cuda))
         print(f"{tag} map_batch[8x{len(contigs[0])}] {label}: {t_mb:.3f} ms "
               f"({8 * len(contigs[0]) / t_mb * 1e3 / 1e6:.2f} Mbases/s)",
@@ -1952,7 +2274,8 @@ def main() -> int:
          f"{t_maps['MapOpts()', True]:.3f} ms)",
          lambda: api._map_classic([ref], index, dopts(True), cuda)),
     ):
-        print(f"{tag} {label}: {host_ms(fn, 3):.3f} ms (host clock, median "
+        t_maps[label] = host_ms(fn, 3)
+        print(f"{tag} {label}: {t_maps[label]:.3f} ms (host clock, median "
               f"of 3)", flush=True)
     for st_name in ("map_sweep", "map_intervals", "map_gap_fill", "map_call",
                     "map_assemble", "map_paint"):
@@ -2081,6 +2404,53 @@ def main() -> int:
         print(f"{tag} cli {label}: {t_cli:.1f} ms (one run, host clock, "
               f"in-process; reading the FASTA and the host index build "
               f"included)", flush=True)
+
+    # the mesh: each call over four shards on the one card (and over every
+    # card when there are two or more) beside its single-device twin, host
+    # clock, medians of 7; the k = 151 batch once (phase 6c's run)
+    t_gap5 = host_ms(lambda: api.find_batch(q_list, index, fo5, device=cuda))
+    t_long = host_ms(lambda: pipeline_mod.matches_ms_batch(
+        index, [codes], threshold, cuda))
+    mesh_calls = (
+        ("find_batch mesh", f"find_batch[{QN}x{QL}]",
+         lambda m: api.find_batch(q_list, index, FindOpts(), mesh=m),
+         t_batch),
+        ("find_batch mesh max_gap_len=5", f"find_batch[{QN}x{QL}] "
+         f"max_gap_len=5", lambda m: api.find_batch(q_list, index, fo5,
+                                                   mesh=m), t_gap5),
+        ("matches_long_sharded", f"matches_long_sharded over {n} bases "
+         f"(twin: the single-device pipeline's matches_ms_batch)",
+         lambda m: pmesh.matches_long_sharded(index, codes, threshold, m),
+         t_long),
+        ("call mesh", f"call CallOpts(k={K})",
+         lambda m: api.call(index, ref, copts(), mesh=m), t_call),
+        ("map_batch mesh format=True", "map_batch([genome]) MapOpts() "
+         "format=True (twin: map_)",
+         lambda m: api.map_batch([ref], index, dopts(True), mesh=m),
+         t_maps["MapOpts()", True]),
+        ("map_batch mesh format=False", "map_batch([genome]) MapOpts() "
+         "format=False (twin: map_)",
+         lambda m: api.map_batch([ref], index, dopts(False), mesh=m),
+         t_maps["MapOpts()", False]),
+        ("map_batch mesh 8 contigs", f"map_batch[8x{len(contigs[0])}] "
+         f"MapOpts()", lambda m: api.map_batch(contigs, index, dopts(True),
+                                               mesh=m),
+         t_maps["MapOpts()", "batch"]),
+    )
+    for mname, m in meshes.items():
+        for path, label, fn, twin in mesh_calls:
+            t_mesh = host_ms(lambda: fn(m))
+            print(f"{tag} mesh {label} over {mname}: {t_mesh:.3f} ms; "
+                  f"single-device {twin:.3f} ms; route "
+                  f"{mesh_routes[path] or 'none (no routing)'}; launches "
+                  f"{json.dumps(launches[path])}", flush=True)
+    path151 = f"map_batch mesh k={K151}"
+    print(f"{tag} mesh map_batch[8x{len(contigs[0])}] k={K151} over 4 shards "
+          f"on cuda:0: {mesh_first_ms[path151]:.3f} ms (one run); "
+          f"single-device "
+          f"{t_maps[f'map_batch[8x{len(contigs[0])}] k={K151}']:.3f} ms "
+          f"(median of 3); route {mesh_routes[path151]}; launches "
+          f"{json.dumps(launches[path151])}", flush=True)
 
     # each kernel alone at the find-core and map shapes, beside its plain
     # version, its byte bound and (where there is one) a library call: the
@@ -2213,6 +2583,36 @@ def main() -> int:
         None,
         f"Q={Qs}, L={Ls}",
     )
+
+    # the mesh's per-shard shapes (captured in phase 6c)
+    for label, (ak, ap, bk, bp) in mesh_shapes.items():
+        W = ak.shape[0]
+        M = ak.shape[1] + bk.shape[1]
+        rows.setdefault(label, {})["merge_path"] = (
+            dev_ms(lambda: merge_path(ak, ap, bk, bp)),
+            dev_ms(lambda: merge_path_plain(ak, ap, bk, bp)),
+            2 * M * (W + 1) * 4 / hbm * 1e3,
+            dev_ms(lib_sort_of(torch.cat([ak, bk], 1))),
+            f"M={M}, W={W}",
+        )
+    for label, (sw, cp, bits) in mesh_scans.items():
+        W, M = sw.shape
+        rows.setdefault(label, {})["clamp_scan"] = (
+            dev_ms(lambda: clamp_scan(sw, cp, bits, False)),
+            dev_ms(lambda: clamp_scan_plain(sw, cp, bits, False)),
+            ((W + 1) * 4 + 4) * M / hbm * 1e3,
+            None,
+            f"M={M}, W={W}, bits={bits}, one direction",
+        )
+    for label, (dms, dk, dthr, dtl) in mesh_dt.items():
+        Qd, Ld = dms.shape
+        rows.setdefault(label, {})["derandomize_translate"] = (
+            dev_ms(lambda: derandomize_translate(dms, dk, dthr, dtl)),
+            dev_ms(lambda: derandomize_translate_plain(dms, dk, dthr, dtl)),
+            (5 * Qd * Ld + 4 * Qd) / hbm * 1e3,
+            None,
+            f"Q={Qd}, L={Ld}, k={dk}",
+        )
 
     # bitonic_merge: the same merge work as merge_path (bound and library
     # call as its row); bitonic_sort: one read and one write of the
@@ -2355,10 +2755,23 @@ def main() -> int:
               lambda: ob_sweep(dev.keys2, dev.cap2, *ob_dev))
     breakdown("call against build_device(full=True)",
               lambda: api.call(full, ref, copts()))
+    breakdown(f"find_batch[{QN}x{QL}] over 4 shards on cuda:0",
+              lambda: api.find_batch(q_list, index, FindOpts(), mesh=m4))
+    breakdown("map_batch([genome]) MapOpts() format=True over 4 shards on "
+              "cuda:0 (sequence-sharded)",
+              lambda: api.map_batch([ref], index, dopts(True), mesh=m4))
+    breakdown(f"map_batch[8x{len(contigs[0])}] MapOpts() over 4 shards on "
+              f"cuda:0 (contig-sharded)",
+              lambda: api.map_batch(contigs, index, dopts(True), mesh=m4))
 
     src = "kbo_tpu_torch/kernels/csrc/"
     main = "map_ MapOpts() format=True"
     map151, map254 = f"map_ k={K151} format=True", f"map_ k={K254} format=True"
+    # the mesh's per-shard shapes, each with the launches of one mesh call
+    mesh_paths = [("mesh batch shard", "find_batch mesh"),
+                  ("mesh seq chunk", "map_batch mesh format=True"),
+                  ("mesh seq variant join", "map_batch mesh format=True"),
+                  ("mesh 8-contig shard", "map_batch mesh 8 contigs")]
     # name: (source, TPU kernel, (shape, path whose launches it reports),
     #        other (shape, path) pairs)
     sources = {
@@ -2373,7 +2786,7 @@ def main() -> int:
                         ("full-index member", "member_widths"),
                         (f"map2 k={K151}", map151),
                         (f"interval k={K151}", map151),
-                        (f"map2 k={K254}", map254)]),
+                        (f"map2 k={K254}", map254)] + mesh_paths),
         "clamp_scan": ("clamp_scan.cu", "kbo_tpu/kernels/pallas_join.py:191",
                        ("map", main),
                        [("rk-vs-seq", main), ("find-core", "find-core"),
@@ -2385,7 +2798,8 @@ def main() -> int:
                         (f"map2 k={K151}", map151),
                         (f"vs-seq k={K151}", map151),
                         (f"map2 k={K254}", map254),
-                        ("over-budget", "over-budget sweep")]),
+                        ("over-budget", "over-budget sweep")]
+                       + mesh_paths),
         "derandomize_translate": (
             "derand_translate.cu", "attic/pallas_postprocess.py:258",
             ("map", main), [("find-core", "find-core"),
@@ -2394,7 +2808,9 @@ def main() -> int:
                             ("full-index batch",
                              "find_batch DeviceFullIndex"),
                             (f"map2 k={K151}", map151),
-                            ("over-budget", "over-budget sweep")]),
+                            ("over-budget", "over-budget sweep")]
+            + [(label, path) for label, path in mesh_paths
+               if label in mesh_dt]),
         "bitonic_merge": ("bitonic.cu", "kbo_tpu/kernels/pallas_sort.py:178",
                           ("find-core", "ms2_core merge=bitonic"),
                           [("map", "ms3_rows_core merge=bitonic"),

@@ -17,7 +17,8 @@ interval probes, the index-free join against the reference sequence);
 ``api.build_device``'s sequence index for :func:`find_batch` and its full
 index for every entry point; and the command line (``python -m
 kbo_tpu_torch``, :mod:`kbo_tpu_torch.cli`). ``device=None`` means the CUDA
-card.
+card. :func:`find_batch`, :func:`call` and :func:`map_batch` also run over
+a ``data`` mesh of devices (:mod:`kbo_tpu_torch.parallel.mesh`).
 """
 
 __version__ = "0.1.0"

@@ -20,12 +20,14 @@ from kbo_tpu_torch.ops import derandomize, format as fmt, translate
 from kbo_tpu_torch.kernels import mapsweep, ms as ms_kernels
 from kbo_tpu_torch.kernels.ms import _bucket
 from kbo_tpu_torch.opts import BuildOpts, CallOpts, FindOpts, MapOpts, MatchOpts
+from kbo_tpu_torch.parallel import mesh as pmesh
 from kbo_tpu_torch.refine import gap_filling, variant_calling
 from kbo_tpu_torch.refine.device_map import (
     DevRefOverflow,
     _canvas,
     _paint_runs,
     _pow2_cap,
+    map_devref_data_sharded,
     map_devref_finish,
 )
 from kbo_tpu_torch.utils.stats import get_stats, stage
@@ -98,19 +100,23 @@ def find_batch(query_seqs: list[bytes], sbwt, find_opts: FindOpts | None = None,
     ``sbwt`` is an :class:`SbwtIndex`, or an index from
     :func:`build_device`: a :class:`kbo_tpu_torch.kernels.ms.DeviceSeqIndex`
     (the index-free path) or a :class:`kbo_tpu_torch.kernels.ms.
-    DeviceFullIndex`, each on its own device."""
+    DeviceFullIndex`, each on its own device.
+
+    With a ``data`` ``mesh`` (:func:`kbo_tpu_torch.parallel.mesh.make_mesh`)
+    the batch shards over its devices (the mesh names the devices: no
+    ``device`` then); a sequence index serves its one device only."""
     opts = find_opts or FindOpts()
-    if mesh is not None:
-        raise NotImplementedError(
-            "find_batch over a mesh: the multi-GPU layer is ROADMAP "
-            "Queue 1 item 8"
-        )
     seq_index = isinstance(sbwt, ms_kernels.DeviceSeqIndex)
     indexes = (SbwtIndex, ms_kernels.DeviceIndex, ms_kernels.DeviceSeqIndex)
     if not isinstance(sbwt, indexes):
         raise TypeError(
             f"find_batch needs an SbwtIndex or an index from build_device, "
             f"not {type(sbwt).__name__}"
+        )
+    if mesh is not None and (seq_index or device is not None):
+        raise ValueError(
+            "find_batch over a mesh takes no device= and no build_device "
+            "sequence index"
         )
     if not query_seqs:
         return []
@@ -124,6 +130,12 @@ def find_batch(query_seqs: list[bytes], sbwt, find_opts: FindOpts | None = None,
             return pipeline.find_rle_batch_seq(sbwt, code_list, threshold)
         if seq_index:
             chars_list = pipeline.matches_batch_seq(sbwt, code_list, threshold)
+        elif mesh is not None and opts.max_gap_len == 0:
+            return pmesh.find_rle_batch_sharded(sbwt, code_list, threshold,
+                                                mesh)
+        elif mesh is not None:
+            chars_list = pmesh.matches_batch_sharded(sbwt, code_list,
+                                                     threshold, mesh)
         elif opts.max_gap_len == 0:
             return pipeline.find_rle_batch(sbwt, code_list, threshold, device)
         else:
@@ -155,11 +167,14 @@ def call(sbwt_query: SbwtIndex, ref_seq: bytes,
     window keys (with its reverse complement after a separator when
     ``add_revcomp``) instead of an index built here. A shorter one builds
     its index on the host, as the reference does.
+
+    With a ``data`` ``mesh`` the k-mer re-runs against the index shard over
+    it and the other phases run on its first device (no ``device`` then).
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "call over a mesh: the multi-GPU layer is ROADMAP Queue 1 item 8"
-        )
+        if device is not None:
+            raise ValueError("call over a mesh takes no device=")
+        device = mesh.devices[mesh.local_shards[0]]
     opts = call_opts or CallOpts()
     ref_seq = bytes(ref_seq)
     with stage("call", bases=len(ref_seq)):
@@ -202,6 +217,7 @@ def call(sbwt_query: SbwtIndex, ref_seq: bytes,
             drops=drops,
             anchors=anchors,
             anchor_rows=anchor_rows,
+            mesh=mesh,
             device=device,
         )
     get_stats().add("variants_called", len(variants))
@@ -267,13 +283,13 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
     Every other batch (k >= 128, or too many contigs for the rows join)
     takes :func:`_map_classic`: the 2-bit sweep and the host refinement
     over sparse colex intervals. ``format`` true or false.
+
+    A ``data`` ``mesh`` (:func:`kbo_tpu_torch.parallel.mesh.make_mesh`; no
+    ``device`` then) takes one of three routes, see :func:`_map_batch_mesh`.
     """
     opts = map_opts or MapOpts()
-    if mesh is not None:
-        raise NotImplementedError(
-            "map_batch over a mesh: the multi-GPU layer is ROADMAP Queue 1 "
-            "item 8"
-        )
+    if mesh is not None and device is not None:
+        raise ValueError("map_batch over a mesh takes no device=")
     if not ref_seqs:
         return []
     ref_seqs = [bytes(r) for r in ref_seqs]
@@ -284,6 +300,8 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
             f"call_variants needs map_opts.sbwt_build_opts.k == the index's "
             f"k ({opts.sbwt_build_opts.k} != {k})"
         )
+    if mesh is not None:
+        return _map_batch_mesh(ref_seqs, query_sbwt, opts, mesh)
     dev = engine.device_index(query_sbwt, device)
 
     # shapes come from the byte lengths alone (1 code per byte): the sweep
@@ -366,9 +384,61 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
                 cap_g = max(cap_g, _pow2_cap(o.need_g))
 
 
-def _ref_matrix(ref_seqs: list[bytes], L: int) -> np.ndarray:
-    """The contigs' raw bytes as a zero-padded [Q, L] uint8 matrix."""
-    ref_mat = np.zeros((len(ref_seqs), L), dtype=np.uint8)
+def _map_batch_mesh(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
+                    mesh) -> list[bytes]:
+    """:func:`map_batch` over a ``data`` mesh, routed as kbo_tpu's
+    ``_map_batch_sparse`` routes it (k < 128 and no variant calling against
+    both strands for the first two):
+
+    1. fewer contigs than shards, chunks of at least max(k, 256) positions
+       and the rows join's slot budget per chunk: the sequence-sharded map
+       (:func:`kbo_tpu_torch.parallel.mesh.map_seq_sharded`);
+    2. the budget per shard's contigs: the contig-sharded map
+       (:func:`kbo_tpu_torch.refine.device_map.map_devref_data_sharded`),
+       unless it returns None (a gap for the host evaluator);
+    3. else the classic mesh sweep (:func:`_map_classic` with the mesh).
+
+    The run's stats count the route: ``mesh_route_seq``,
+    ``mesh_route_data``, ``mesh_route_classic`` (``mesh_data_degraded``
+    when route 2 gave way to 3)."""
+    nd = mesh.devices.size
+    k = query_sbwt.k
+    Q0 = len(ref_seqs)
+    L = _bucket(max(len(r) for r in ref_seqs))
+    if -(-Q0 // nd) * nd * L >= 2**31:
+        raise ValueError("padded batch exceeds the int32 position space")
+    stats = get_stats()
+    if k < 128 and not (opts.call_variants
+                        and opts.sbwt_build_opts.add_revcomp):
+        dev = pmesh.index_replicas(query_sbwt, mesh)[mesh.local_shards[0]]
+        budget = ms_kernels._PACKED_SLOT_LIMIT - int(dev.keys3.shape[1])
+        code_list = [encode_ascii(r) for r in ref_seqs]
+        chunk = -(-L // nd)
+        if Q0 < nd and chunk >= max(k, 256) and \
+                Q0 * (chunk + 2 * (k - 1)) < budget:
+            stats.add("mesh_route_seq")
+            return pmesh.map_seq_sharded(ref_seqs, query_sbwt, opts, mesh,
+                                         code_list)
+        if -(-Q0 // nd) * (L + k - 1) < budget:
+            threshold = derandomize.random_match_threshold(
+                k, query_sbwt.n_kmers, 4, opts.max_error_prob
+            )
+            with stage("map_sweep", bases=sum(len(r) for r in ref_seqs)):
+                out = map_devref_data_sharded(ref_seqs, query_sbwt, code_list,
+                                              opts, threshold, mesh)
+            if out is not None:
+                stats.add("mesh_route_data")
+                return out
+            stats.add("mesh_data_degraded")
+    stats.add("mesh_route_classic")
+    return _map_classic(ref_seqs, query_sbwt, opts, mesh=mesh)
+
+
+def _ref_matrix(ref_seqs: list[bytes], L: int,
+                Q: int | None = None) -> np.ndarray:
+    """The contigs' raw bytes as a zero-padded [Q, L] uint8 matrix (Q: the
+    contig count, or more with zero rows after them)."""
+    ref_mat = np.zeros((Q or len(ref_seqs), L), dtype=np.uint8)
     for q, r in enumerate(ref_seqs):
         ref_mat[q, : len(r)] = np.frombuffer(r, dtype=np.uint8)
     return ref_mat
@@ -393,7 +463,7 @@ def _upload(ref_mat: np.ndarray, seq_lens: np.ndarray, lengths_dev):
 
 
 def _map_classic(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
-                 device=None) -> list[bytes]:
+                 device=None, mesh=None) -> list[bytes]:
     """The 2-bit map path (kbo_tpu/api.py ``_map_batch_sparse``, its
     classic single-device branch): every k, any number of contigs.
     :func:`map_batch` sends a batch here when :func:`map_route` says so;
@@ -417,30 +487,61 @@ def _map_classic(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
     (upload, sweep and candidate fetch), ``map_intervals`` (the
     prefetches), ``map_gap_fill``, ``map_call``, ``map_assemble`` (with the
     delta fetch), ``map_paint``.
+
+    With a ``data`` ``mesh`` (kbo_tpu's classic mesh branch) the batch is
+    padded to a multiple of the shard count and the sweep and the candidate
+    compaction run per shard
+    (:func:`kbo_tpu_torch.parallel.mesh.map_sweep_compact_sharded`); the
+    candidates are fetched from every shard at once, the chars, MS and
+    codes gathered onto the mesh's first device, where the rest runs, and
+    :func:`call` takes the mesh.
     """
     k = query_sbwt.k
     threshold = derandomize.random_match_threshold(
         k, query_sbwt.n_kmers, 4, opts.max_error_prob
     )
-    dev = engine.device_index(query_sbwt, device)
-    seq_lens = np.asarray([len(r) for r in ref_seqs], dtype=np.int32)
-    Q, L = len(ref_seqs), _bucket(int(seq_lens.max()))
-    ref_mat = _ref_matrix(ref_seqs, L)
+    L = _bucket(max(len(r) for r in ref_seqs))
+    if mesh is None:
+        dev = engine.device_index(query_sbwt, device)
+        seq_lens = np.asarray([len(r) for r in ref_seqs], dtype=np.int32)
+    else:
+        dev = pmesh.index_replicas(query_sbwt, mesh)[0]
+        codes, seq_lens = pmesh.pad_rows(
+            *pipeline.pad_batch([encode_ascii(r) for r in ref_seqs], L),
+            mesh.devices.size,
+        )
+    Q = seq_lens.size
+    ref_mat = _ref_matrix(ref_seqs, L, Q)
     lengths_dev = torch.from_numpy(seq_lens).to(dev.device)
     total_bases = int(seq_lens.sum())
     stats = get_stats()
     with stage("map_sweep", bases=total_bases):
-        ref_mat_dev, codes_dev = _upload(ref_mat, seq_lens, lengths_dev)
-        (chars_dev, ms_dev, counts_dev, drop_pos_dev, gap_start_dev,
-         gap_end_dev) = mapsweep.map_sweep_compact_core(
-            dev.keys2, dev.cap2, codes_dev, lengths_dev, k, threshold
-        )
+        if mesh is None:
+            ref_mat_dev, codes_dev = _upload(ref_mat, seq_lens, lengths_dev)
+            sweep = mapsweep.map_sweep_compact_core(
+                dev.keys2, dev.cap2, codes_dev, lengths_dev, k, threshold
+            )
+            chars_dev, ms_dev = sweep[:2]
 
-        def fetch(cap_d, cap_g):
-            return mapsweep.fetch_candidates(
-                counts_dev, drop_pos_dev, gap_start_dev, gap_end_dev, cap_d,
-                cap_g,
-            ).cpu().numpy()
+            def fetch(cap_d, cap_g):
+                return mapsweep.fetch_candidates(*sweep[2:], cap_d,
+                                                 cap_g).cpu().numpy()
+        else:
+            parts = pmesh.map_sweep_compact_sharded(
+                query_sbwt, codes, seq_lens, threshold, mesh
+            )
+            codes_dev, chars_dev, ms_dev = (
+                pmesh.all_gather(mesh, [p[j] for p in parts])
+                for j in range(3)
+            )
+            ref_mat_dev = torch.from_numpy(ref_mat).to(dev.device)
+
+            def fetch(cap_d, cap_g):
+                return pmesh.gather_to_host(mesh, pmesh.map_shards(
+                    mesh,
+                    lambda p: mapsweep.fetch_candidates(*p[3:], cap_d, cap_g),
+                    parts,
+                ))
 
         # optimistic capacities, as on the rows path
         cap_d = _pow2_cap(L // 1024)
@@ -508,7 +609,8 @@ def _map_classic(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
         if opts.call_variants:
             with stage("map_call"):
                 variants = call(query_sbwt, ref_seq, call_opts, ivals=ivals,
-                                drops=drops, device=dev.device)
+                                drops=drops, mesh=mesh,
+                                device=dev.device if mesh is None else None)
             patches.update(translate.variant_patches(variants))
         if patches:
             pp = np.fromiter(patches.keys(), dtype=np.int64)
@@ -546,4 +648,4 @@ def _map_classic(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
         _paint_runs(canvas, delta[0, :n_runs], delta[1, :n_runs],
                     delta[2, :n_runs], L, row_lens)
         return [canvas[q * L : q * L + row_lens[q]].tobytes()
-                for q in range(Q)]
+                for q in range(len(ref_seqs))]

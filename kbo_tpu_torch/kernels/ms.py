@@ -25,6 +25,7 @@ Golden vector to verify: query vs 18-base ref gives MS
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -74,6 +75,14 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def device_scope(device: torch.device):
+    """The context that makes ``device`` current for the work inside it:
+    ``torch.cuda.device`` for a card, nothing for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 # --------------------------------------------------------------- packing

@@ -308,6 +308,55 @@ derandomize_translate.launches = 0
 # ------------------------------------------------------- device RLE (find)
 
 
+def rle_segments_core(chars: torch.Tensor, lengths: torch.Tensor,
+                      cap: int) -> torch.Tensor:
+    """Per-row RLE segment tables for ``max_gap_len == 0``: int32
+    [Q, 1 + 5 * min(cap, L)], per row the segment count, then ``cap``
+    columns (at most L) each of start, end (half-open), matches,
+    mismatches and jumps, sentinel 0x7FFFFFFF starts past the count.
+
+    At zero gap tolerance a segment is a maximal run of non-gap characters
+    (reference: src/format.rs:143-193), so its stats are prefix-sum
+    differences at the run's ends. :func:`rle_segments_global_core` shares
+    one table among the rows instead, which is what the find paths fetch.
+    """
+    Q, L = chars.shape
+    dev = chars.device
+    big = 0x7FFFFFFF
+    idx = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    in_len = idx < lengths.to(torch.int32)[:, None]
+    mask = in_len & (chars != ord("-")) & (chars != ord(" "))
+    false_col = torch.zeros((Q, 1), dtype=torch.bool, device=dev)
+    seg_start = mask & ~torch.cat([false_col, mask[:, :-1]], dim=1)
+    seg_end = mask & ~torch.cat([mask[:, 1:], false_col], dim=1)
+    aligned = (chars == ord("M")) | (chars == ord("R")) | (chars == ord("I"))
+    prev_r = torch.cat([false_col, chars[:, :-1] == ord("R")], dim=1)
+    jump = mask & (chars == ord("R")) & prev_r
+    cm = torch.cumsum((mask & aligned).to(torch.int32), dim=1, dtype=torch.int32)
+    cx = torch.cumsum((mask & ~aligned).to(torch.int32), dim=1, dtype=torch.int32)
+    cj = torch.cumsum(jump.to(torch.int32), dim=1, dtype=torch.int32)
+    count = seg_start.sum(dim=1, dtype=torch.int32)
+
+    def compact(m):
+        """Ascending positions where m holds, sentinel-padded, cap wide."""
+        return torch.sort(torch.where(m, idx, big), dim=1).values[:, :cap]
+
+    starts, ends = compact(seg_start), compact(seg_end)
+    sp = torch.clamp(starts, 0, L - 1).to(torch.int64)
+    ep = torch.clamp(ends, 0, L - 1).to(torch.int64)
+    at_prev = torch.clamp(sp - 1, min=0)
+
+    def span(c):
+        base = torch.where(sp > 0, torch.gather(c, 1, at_prev), 0)
+        return torch.gather(c, 1, ep) - base
+
+    return torch.cat(
+        [count[:, None], starts, torch.where(ends < big, ep + 1, ends),
+         span(cm), span(cx), span(cj)],
+        dim=1,
+    ).to(torch.int32)
+
+
 def _compact_capped_flat(mask: torch.Tensor, cap: int) -> torch.Tensor:
     """First ``cap`` set positions of a flat mask, ascending, padded with
     0x7FFFFFFF: cumsum + cap-many binary searches."""

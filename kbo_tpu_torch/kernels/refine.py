@@ -43,6 +43,7 @@ from kbo_tpu_torch.kernels.ms import (
     INVALID,
     _carry_nearest,
     _neighbor_best,
+    device_scope,
     pack_windows_3bit,
 )
 from kbo_tpu_torch.kernels.sort import _radix_sort, to_i32, u32
@@ -169,9 +170,11 @@ def resolve_variants_core(
     Inputs are the resident sweep outputs: ``ms`` [Q, L] from the 3-bit
     join, ``drop_pos``/``apos``/``arow`` [Q, cap_d] from the postprocess
     stage (kernels/mapsweep.py), ``seq_words`` from
-    :func:`seq_keys3_tagged_core`. Returns (patch_pos int32 [S, k] flat
-    q*L+i positions with Q*L = inert, patch_prio_val int32 [S, k],
-    n_variants int32 scalar) with S = Q*cap_d.
+    :func:`seq_keys3_tagged_core`, or a list of such tables, one per
+    position chunk of the sequence and each on its own device (the
+    sequence-sharded map, kbo_tpu_torch.parallel.mesh). Returns (patch_pos
+    int32 [S, k] flat q*L+i positions with Q*L = inert, patch_prio_val
+    int32 [S, k], n_variants int32 scalar) with S = Q*cap_d.
 
     The query-k-mer MS re-run needs no join: the isolated k-mer's window at
     local offset i packs like the sweep's window at the underlying position,
@@ -243,16 +246,24 @@ def resolve_variants_core(
                                 merge=merge)
             c = ct if c is None else torch.maximum(c, ct)
     else:
-        n_seq = seq_words.shape[1]
         if Q > 1:
             # leading tag word: probes join only their own contig's windows
             p_tag = (meta // kp) // cap_d
             p_words = torch.cat([p_tag[None], p_words])
-            cap_seq = torch.full((n_seq,), k + _TAG_PAD, dtype=torch.int32,
-                                 device=dev)
-        else:
-            cap_seq = torch.full((n_seq,), k, dtype=torch.int32, device=dev)
-        c = _neighbor_best(seq_words, cap_seq, p_words, meta, 3, merge=merge)
+        cap = k + _TAG_PAD if Q > 1 else k
+        c = None
+        # a list holds one table per position chunk of the sequence, each on
+        # its own device: the probes join each, and the max over the chunks
+        # is exact (every true window lies in one chunk with its full
+        # context; a context-region duplicate can only score lower)
+        for sw in seq_words if isinstance(seq_words, list) else [seq_words]:
+            with device_scope(sw.device):
+                cap_seq = torch.full((sw.shape[1],), cap, dtype=torch.int32,
+                                     device=sw.device)
+                ct = _neighbor_best(sw, cap_seq, p_words.to(sw.device),
+                                    meta.to(sw.device), 3, merge=merge)
+            ct = ct.to(dev)
+            c = ct if c is None else torch.maximum(c, ct)
     if Q > 1:
         c = torch.clamp(c - _TAG_PAD, min=0)
     msq = torch.clamp(c, max=k).reshape(S, kp)

@@ -1,0 +1,608 @@
+"""Multi-device execution over a mesh of torch devices (counterpart of
+kbo_tpu/parallel/mesh.py, its ``data`` axis).
+
+kbo_tpu's mesh is single-controller: one process drives every device
+through ``jax.shard_map``. So is this one: a :class:`Mesh` is a list of
+torch devices driven from one process, and a device may repeat (four shards
+on one card run every sharded path at real per-shard shapes).
+
+- Index tables are REPLICATED, one copy per distinct device
+  (:func:`index_replicas`); query batches and sequences are SHARDED over the
+  ``data`` axis: a sharded value is a list of per-shard tensors, shard i on
+  ``mesh.devices[i]``.
+- Collectives are explicit copies onto the mesh's first device followed by
+  a torch reduction (:func:`all_gather`, :func:`psum`); on one card they are
+  device-local copies, on several peer copies.
+- A stage that kbo_tpu runs replicated on every device runs once, on the
+  first device, and its outputs are copied to the shards that read them.
+- Each shard's work runs under its device (:func:`map_shards`), and every
+  shard is launched before the first fetch to the host, so that cards run
+  side by side.
+- Per-query outputs come back in input order: fixed-shape per-shard blocks
+  concatenate in shard order.
+
+Several processes (kbo_tpu_torch.parallel.distributed) form one global mesh
+of every process's local devices; each process runs its own shards and
+``gather_to_host`` fills in the rest. The collectives above need every
+shard in one process and raise otherwise. The ``model`` axis (the key table
+itself split across devices) and the 2-D mesh are ROADMAP Queue 1 item 8b.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from kbo_tpu_torch import engine
+from kbo_tpu_torch.index.encode import encode_ascii
+from kbo_tpu_torch.kernels.mapsweep import (
+    _ms3_rows_chunk,
+    map_postprocess3_core,
+    map_sweep_compact_core,
+)
+from kbo_tpu_torch.kernels.ms import (
+    INVALID,
+    DeviceIndex,
+    device_scope,
+    ms2_core,
+)
+from kbo_tpu_torch.kernels.postprocess import rle_segments_global_core
+from kbo_tpu_torch.kernels.refine import (
+    get_ext_table,
+    resolve_variants_core,
+    score_gaps_core,
+    seq_keys3_tagged_core,
+)
+from kbo_tpu_torch.ops.derandomize import random_match_threshold
+from kbo_tpu_torch.opts import MapOpts
+from kbo_tpu_torch.parallel import distributed
+from kbo_tpu_torch.parallel.distributed import gather_to_host
+from kbo_tpu_torch.pipeline import (
+    _bucket,
+    _rle_structs_global,
+    decode_packed_codes_device,
+    matches_pipeline_core,
+    pack_codes_host,
+    pad_batch,
+)
+from kbo_tpu_torch.utils.stats import stage
+
+_BIG32 = 2**31 - 1
+_ITEM_8B = "ROADMAP Queue 1 item 8b"
+
+
+class Mesh:
+    """Devices along named axes; only the one-axis ``("data",)`` mesh.
+
+    ``devices`` is a numpy object array of ``torch.device`` (a device may
+    repeat), ``axis_names`` the axis names, ``shape`` {axis: size}, as on a
+    ``jax.sharding.Mesh``. In a multi-process run the devices are every
+    process's, in rank order, and ``local_shards`` are this process's.
+    """
+
+    def __init__(self, devices, axis_names=("data",), process_count: int = 1,
+                 process_index: int = 0):
+        devices = np.asarray(devices, dtype=object)
+        axis_names = tuple(axis_names)
+        if axis_names != ("data",) or devices.ndim != 1:
+            raise NotImplementedError(
+                f"a mesh with axes {axis_names}: the 'model' axis and the 2-D "
+                f"mesh are {_ITEM_8B}"
+            )
+        if devices.size == 0 or devices.size % process_count:
+            raise ValueError(
+                f"{devices.size} devices do not split over {process_count} "
+                f"processes"
+            )
+        self.devices = devices
+        self.axis_names = axis_names
+        self.shape = {"data": int(devices.size)}
+        self.process_count = process_count
+        per = devices.size // process_count
+        self.local_shards = range(process_index * per,
+                                  (process_index + 1) * per)
+
+
+def make_mesh(n_devices: int | None = None, axis: str = "data",
+              device=None) -> Mesh:
+    """A one-axis mesh.
+
+    ``device`` None or ``"cuda"``: the first ``n_devices`` visible cards
+    (all of them by default); raises when there are fewer, or none. A single
+    named device (``"cuda:0"``, ``"cpu"``): ``n_devices`` shards on that
+    one device (required). In a multi-process run these are this process's
+    devices, and the mesh holds every process's.
+    """
+    if axis != "data":
+        raise NotImplementedError(
+            f"a mesh over the {axis!r} axis: {_ITEM_8B}"
+        )
+    dev = None if device is None else torch.device(device)
+    if dev is None or (dev.type == "cuda" and dev.index is None):
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_mesh: no CUDA device; make_mesh(n, device='cpu') puts "
+                "n shards on the CPU"
+            )
+        count = torch.cuda.device_count()
+        n = count if n_devices is None else n_devices
+        if not 1 <= n <= count:
+            raise ValueError(f"make_mesh: {n} cards asked, {count} visible")
+        local = [torch.device("cuda", i) for i in range(n)]
+    else:
+        if n_devices is None or n_devices < 1:
+            raise ValueError(
+                f"make_mesh: shards on the one device {dev} need n_devices"
+            )
+        local = [dev] * n_devices
+    n_proc = distributed.process_count()
+    if n_proc == 1:
+        return Mesh(local, (axis,))
+    names = [None] * n_proc
+    dist.all_gather_object(names, [str(d) for d in local])
+    if len({len(part) for part in names}) != 1:
+        raise ValueError("make_mesh: every process must bring as many devices")
+    return Mesh([torch.device(s) for part in names for s in part], (axis,),
+                n_proc, distributed.process_index())
+
+
+# ------------------------------------------------------------- placement
+
+
+def map_shards(mesh: Mesh, fn, *per_shard):
+    """``fn(a[i], b[i], ...)`` for every local shard i, under its device:
+    a list per shard (None for another process's shards). Launches only:
+    fetch after every shard is queued."""
+    out = [None] * mesh.devices.size
+    for i in mesh.local_shards:
+        with device_scope(mesh.devices[i]):
+            out[i] = fn(*(a[i] for a in per_shard))
+    return out
+
+
+def shard_rows(mesh: Mesh, arr: np.ndarray):
+    """A host array split along axis 0 into one block per shard, shard i's
+    block on ``mesh.devices[i]`` (every process passes the same array)."""
+    n = mesh.devices.size
+    if arr.shape[0] % n:
+        raise ValueError(f"{arr.shape[0]} rows do not split over {n} shards")
+    per = arr.shape[0] // n
+    return map_shards(
+        mesh,
+        lambda i: torch.from_numpy(
+            np.ascontiguousarray(arr[i * per : (i + 1) * per])
+        ).to(mesh.devices[i]),
+        range(n),
+    )
+
+
+def replicate(mesh: Mesh, x: torch.Tensor):
+    """``x`` on every local shard's device, one copy per distinct device
+    (shards on one device share it)."""
+    copies: dict[str, torch.Tensor] = {}
+
+    def copy_on(d):
+        if str(d) not in copies:
+            copies[str(d)] = x.to(d)
+        return copies[str(d)]
+
+    return map_shards(mesh, copy_on, mesh.devices)
+
+
+def _replica(dev: DeviceIndex, device: torch.device) -> DeviceIndex:
+    """A device index's tables on another device: a shallow copy whose
+    tensors (tuples of tensors too) are moved there."""
+    if dev.device == device:
+        return dev
+    rep = object.__new__(type(dev))
+    for name, v in vars(dev).items():
+        if name == "_mesh_replicas":
+            continue
+        if isinstance(v, torch.Tensor):
+            v = v.to(device)
+        elif isinstance(v, tuple) and all(isinstance(t, torch.Tensor)
+                                          for t in v):
+            v = tuple(t.to(device) for t in v)
+        setattr(rep, name, v)
+    rep.device = device
+    return rep
+
+
+def index_replicas(index, mesh: Mesh):
+    """The index's join tables on every local shard's device, as a list
+    per shard: one :class:`DeviceIndex` per distinct device, kept on the
+    index for the mesh's devices.
+
+    The first device takes the engine's own tables for it
+    (``engine.device_index``), which the stages run there read too; the
+    other devices' copies are this layer's, so a mesh of many cards does
+    not cycle the engine's five-entry cache."""
+    key = tuple(str(mesh.devices[i]) for i in mesh.local_shards)
+    cache = vars(index).setdefault("_mesh_replicas", {})
+    if key not in cache:
+        base = engine.device_index(index, mesh.devices[mesh.local_shards[0]])
+        by_dev: dict[str, DeviceIndex] = {}
+
+        def replica_on(d):
+            if str(d) not in by_dev:
+                by_dev[str(d)] = _replica(base, d)
+            return by_dev[str(d)]
+
+        cache[key] = map_shards(mesh, replica_on, mesh.devices)
+    return cache[key]
+
+
+# ----------------------------------------------------------- collectives
+
+
+def _one_process(mesh: Mesh, what: str):
+    if mesh.process_count > 1:
+        raise NotImplementedError(
+            f"{what} needs every shard in one process: across processes only "
+            f"host results meet (distributed.gather_to_host)"
+        )
+
+
+def all_gather(mesh: Mesh, parts, dim: int = 0) -> torch.Tensor:
+    """The shards' tensors on the mesh's first device, concatenated along
+    ``dim`` in shard order."""
+    _one_process(mesh, "all_gather")
+    dst = mesh.devices[0]
+    return torch.cat([p.to(dst) for p in parts], dim=dim)
+
+
+def psum(mesh: Mesh, parts) -> torch.Tensor:
+    """The elementwise sum of the shards' tensors, on the first device."""
+    _one_process(mesh, "psum")
+    dst = mesh.devices[0]
+    out = parts[0].to(dst)
+    for p in parts[1:]:
+        out = out + p.to(dst)
+    return out
+
+
+# -------------------------------------------------- data-parallel batches
+
+
+def pad_rows(codes: np.ndarray, lengths: np.ndarray, n: int):
+    """Pad a [Q, L] batch with empty INVALID rows to a multiple of n."""
+    Qp = -(-codes.shape[0] // n) * n
+    if Qp != codes.shape[0]:
+        pad = Qp - codes.shape[0]
+        codes = np.pad(codes, ((0, pad), (0, 0)), constant_values=INVALID)
+        lengths = np.pad(lengths, (0, pad))
+    return codes, lengths
+
+
+def _matches_parts(mesh, index, codes_p, lengths_p, threshold: int):
+    """The find pipeline launched on every shard: (chars, ms) per shard."""
+    return map_shards(
+        mesh,
+        lambda dv, c, le: matches_pipeline_core(
+            dv.keys2, dv.cap2, c, le, dv.k, int(threshold)
+        ),
+        index_replicas(index, mesh), codes_p, lengths_p,
+    )
+
+
+def matches_batch_sharded(index, code_list: list[np.ndarray], threshold: int,
+                          mesh: Mesh | None = None) -> list[np.ndarray]:
+    """Data-parallel batched matches over the shards of a mesh: Q is padded
+    to a multiple of the shard count; chars (uint8 arrays) come back in
+    input order."""
+    mesh = mesh or make_mesh()
+    codes, lengths = pad_rows(*pad_batch(code_list), mesh.devices.size)
+    parts = _matches_parts(mesh, index, shard_rows(mesh, codes),
+                           shard_rows(mesh, lengths), threshold)
+    chars = gather_to_host(mesh, [p and p[0] for p in parts])
+    return [chars[i, : c.size] for i, c in enumerate(code_list)]
+
+
+def find_rle_batch_sharded(index, code_list: list[np.ndarray], threshold: int,
+                           mesh: Mesh | None = None):
+    """Data-parallel batched find with the segments extracted on the
+    shards (``max_gap_len == 0``): a clean ACGT batch uploads 2-bit packed
+    and decodes on its shards, the chars stay there, and each shard's
+    global segment table (kernels.postprocess.rle_segments_global_core) is
+    all that is fetched, again with a larger table when one overflows.
+    Returns the RLE lists in input order."""
+    mesh = mesh or make_mesh()
+    n = mesh.devices.size
+    codes, lengths = pad_rows(*pad_batch(code_list, bucket=True), n)
+    Q, L = codes.shape
+    lengths_p = shard_rows(mesh, lengths)
+    packed = pack_codes_host(codes, lengths)
+    if packed is not None:
+        codes_p = map_shards(mesh, decode_packed_codes_device,
+                             shard_rows(mesh, packed), lengths_p)
+    else:
+        codes_p = shard_rows(mesh, codes)
+    chars_p = [p and p[0] for p in
+               _matches_parts(mesh, index, codes_p, lengths_p, threshold)]
+    q_per = Q // n
+    cap = _bucket(max(128, 2 * q_per), lo=128)
+    while True:
+        blocks = gather_to_host(mesh, map_shards(
+            mesh, lambda c, le: rle_segments_global_core(c, le, cap)[None],
+            chars_p, lengths_p,
+        ))
+        rows: list = []
+        for block in blocks:
+            part = _rle_structs_global(block, q_per, cap)
+            if part is None:
+                break
+            rows.extend(part)
+        else:
+            return rows[: len(code_list)]
+        cap = min(cap * 4, q_per * ((L + 1) // 2 + 1))
+
+
+def matches_long_sharded(index, codes: np.ndarray, threshold: int,
+                         mesh: Mesh | None = None):
+    """Sequence-parallel find pipeline over ONE long query.
+
+    Every MS value depends only on its k-window, and derandomize/translate
+    carry information at most k + threshold + 2 positions from a reset, so
+    chunks with a halo of that size are exact. Shard 0 starts at the
+    sequence start (no left pad: translate's position-0/1 rule applies to
+    the true start); ceil-division chunking can put trailing shards past
+    the end, and they contribute nothing. Returns (chars uint8 [L], ms
+    int64 [L])."""
+    mesh = mesh or make_mesh()
+    n = mesh.devices.size
+    codes = np.asarray(codes, dtype=np.uint8)
+    L = codes.size
+    halo = index.k + int(threshold) + 2
+    chunk = -(-L // n)
+    if chunk <= halo:
+        raise ValueError(
+            f"a sequence of {L} is too short to shard {n} ways with halo "
+            f"{halo}"
+        )
+    width = chunk + 2 * halo
+    rows = np.full((n, width), INVALID, dtype=np.uint8)
+    lengths = np.zeros(n, dtype=np.int32)
+    offs = np.zeros(n, dtype=np.int64)  # row index of position i * chunk
+    for i in range(n):
+        s = i * chunk
+        lo = max(0, s - halo)
+        hi = max(min(L, s + chunk + halo), lo)
+        rows[i, : hi - lo] = codes[lo:hi]
+        lengths[i] = hi - lo
+        offs[i] = s - lo
+    parts = _matches_parts(mesh, index, shard_rows(mesh, rows),
+                           shard_rows(mesh, lengths), threshold)
+    chars = gather_to_host(mesh, [p and p[0] for p in parts])
+    ms = gather_to_host(mesh, [p and p[1] for p in parts]).astype(np.int64)
+    out_chars = np.empty(L, dtype=np.uint8)
+    out_ms = np.empty(L, dtype=np.int64)
+    for i in range(n):
+        s, e = i * chunk, min(L, (i + 1) * chunk)
+        if e > s:
+            off = int(offs[i])
+            out_chars[s:e] = chars[i, off : off + e - s]
+            out_ms[s:e] = ms[i, off : off + e - s]
+    return out_chars, out_ms
+
+
+def ms_values_many_sharded(index, code_list: list[np.ndarray],
+                           mesh: Mesh) -> list[np.ndarray]:
+    """Data-parallel MS of many short queries (the variant caller's k-mer
+    re-runs over the ``data`` axis): int64 arrays in input order."""
+    k = index.k
+    codes, _ = pad_rows(*pad_batch(code_list), mesh.devices.size)
+    buf = np.concatenate(
+        [np.full((codes.shape[0], k - 1), INVALID, np.uint8), codes], axis=1
+    )
+    parts = map_shards(
+        mesh,
+        lambda dv, b: ms2_core(dv.keys2, dv.cap2, b.reshape(-1), k).reshape(
+            b.shape),
+        index_replicas(index, mesh), shard_rows(mesh, buf),
+    )
+    ms = gather_to_host(mesh, parts)[:, k - 1 :].astype(np.int64)
+    return [ms[i, : c.size] for i, c in enumerate(code_list)]
+
+
+def map_sweep_compact_sharded(index, codes: np.ndarray, lengths: np.ndarray,
+                              threshold: int, mesh: Mesh):
+    """Data-parallel 2-bit map sweep with the candidates compacted on the
+    shards (kernels.mapsweep.map_sweep_compact_core); the compaction is
+    row-local, so the per-shard outputs in shard order are the
+    single-device sweep's. The caller pads the batch to a multiple of the
+    shard count. Returns, per shard, (codes, chars, ms, counts, drop_pos,
+    gap_start, gap_end_at) on the shard's device."""
+    return map_shards(
+        mesh,
+        lambda dv, c, le: (c,) + map_sweep_compact_core(
+            dv.keys2, dv.cap2, c, le, dv.k, int(threshold)
+        ),
+        index_replicas(index, mesh), shard_rows(mesh, codes),
+        shard_rows(mesh, lengths),
+    )
+
+
+# --------------------------------------------- sequence-sharded map path
+#
+# The flagship `map` workload is ONE multi-megabase pair (reference:
+# src/lib.rs:720-761); contig-granular sharding cannot split it. This path
+# places POSITION CHUNKS of the sequence on the shards:
+#
+#   stage 1  the 3-bit rows join per chunk with k-1 real left context
+#            (exact, as kernels.mapsweep.ms3_rows_sweep_chunked), the dense
+#            (ms, uniq, rows) all-gathered onto the first device;
+#   stage 2  derandomize/translate and the candidate compaction run once
+#            there (the derandomize scan and gap runs cross chunk edges);
+#   stage 3  gap scoring splits the CANDIDATE SLOTS over the shards (each
+#            gap's math is slot-local), the variant resolver's
+#            rk-vs-sequence join the SEQUENCE chunks (per-shard tagged
+#            window keys, the per-probe best maxed over the shards);
+#   stage 4  priority assembly and the single delta fetch run once.
+
+
+class _SeqShardedDev:
+    """The per-call holder refine.device_map.map_devref_finish's
+    sequence-sharded branch reads: the index replicas per shard (kept on
+    the index by :func:`index_replicas`), the mesh and each shard's
+    context chunk."""
+
+    def __init__(self, replicas, k: int, mesh: Mesh, ctx_chunks):
+        self.replicas = replicas
+        self.k = k
+        self.seq_mesh = mesh
+        self.ctx_chunks = ctx_chunks
+
+
+def _seqsh_stage1(holder: _SeqShardedDev, L: int):
+    """Stage 1: each shard's chunk joined with its k-1 context codes; the
+    dense (ms, uniq, rows) [Q, L] gathered onto the first device."""
+    k = holder.k
+    parts = map_shards(
+        holder.seq_mesh,
+        lambda dv, cc: _ms3_rows_chunk(dv.keys3, dv.rows_packed, cc, k),
+        holder.replicas, holder.ctx_chunks,
+    )
+    return tuple(
+        all_gather(holder.seq_mesh, [p[j] for p in parts], dim=1)[:, :L]
+        for j in range(3)
+    )
+
+
+def seqsh_score_gaps(holder: _SeqShardedDev, ref_mat, lengths, gap_start,
+                     gap_end_at, grid, threshold: int, bound: float, k: int,
+                     cap_g: int, cap_ext: int):
+    """kernels.refine.score_gaps_core with the CANDIDATE SLOTS split over
+    the shards: each scores cap_g / n of the compacted gap runs against
+    its replica of the key table and extension table (the reference matrix
+    and lengths copied to it). The patch grids gather (their order does not
+    matter to the scatter-max assembly), ``needs_host`` is laid back into
+    the [Q * cap_g] slot order, the counters sum."""
+    mesh = holder.seq_mesh
+    nd = mesh.shape["data"]
+    Q = gap_start.shape[0]
+    capp = -(-cap_g // nd) * nd
+    gs, ge, gr = gap_start[:, :cap_g], gap_end_at[:, :cap_g], grid[:, :cap_g]
+    if capp != cap_g:
+        pad = capp - cap_g
+        gs = torch.cat([gs, gs.new_full((Q, pad), _BIG32)], dim=1)
+        ge = torch.cat([ge, ge.new_full((Q, pad), _BIG32)], dim=1)
+        gr = torch.cat([gr, gr.new_full((Q, pad, gr.shape[2]), -1)], dim=1)
+    cap_gl = capp // nd
+
+    def shard(s, dv, rm, le):
+        sl = slice(s * cap_gl, (s + 1) * cap_gl)
+        d = dv.device
+        return score_gaps_core(
+            dv.keys3, rm, le, gs[:, sl].to(d), ge[:, sl].to(d),
+            gr[:, sl].to(d), threshold, k, cap_gl, cap_ext,
+            get_ext_table(dv), bound,
+        )
+
+    parts = map_shards(mesh, shard, range(nd), holder.replicas,
+                       replicate(mesh, ref_mat), replicate(mesh, lengths))
+    needs_host = all_gather(
+        mesh, [p[2].reshape(Q, cap_gl) for p in parts], dim=1
+    )[:, :cap_g].reshape(-1)
+    return (all_gather(mesh, [p[0] for p in parts]),
+            all_gather(mesh, [p[1] for p in parts]),
+            needs_host, psum(mesh, [p[3] for p in parts]))
+
+
+def seqsh_resolve_variants(holder: _SeqShardedDev, codes, ref_mat, ms,
+                           lengths, drop_pos, apos, arow, d: int, k: int,
+                           cap_d: int, d_lo: int = 0):
+    """kernels.refine.resolve_variants_core with the rk-vs-sequence join
+    table SEQUENCE-SHARDED: each shard sorts only its chunk's tagged window
+    keys (chunk + k-1 real context) on its own device, the probes join each
+    and the best is maxed over the shards (exact: every true window lies in
+    one chunk; a context-region duplicate can only score lower). The rest
+    runs once, on the first device."""
+    tables = map_shards(holder.seq_mesh,
+                        lambda cc: seq_keys3_tagged_core(cc, k),
+                        holder.ctx_chunks)
+    return resolve_variants_core(
+        holder.replicas[0].keys3, tables, codes, ref_mat, ms, lengths,
+        drop_pos, apos, arow, d, k, cap_d, d_lo=d_lo,
+    )
+
+
+def map_seq_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
+                    mesh: Mesh | None = None,
+                    code_list=None) -> list[bytes]:
+    """Batched ``map_`` with the SEQUENCE position-sharded over the
+    ``data`` axis: one genome uses every shard, where the contig-sharded
+    map (refine.device_map.map_devref_data_sharded) cannot split the
+    single-pair workload. The same single-fetch refinement as the
+    single-device map, and byte for byte its output."""
+    from kbo_tpu_torch.refine.device_map import (
+        DevRefOverflow,
+        _pow2_cap,
+        map_devref_finish,
+    )
+
+    opts = map_opts or MapOpts()
+    if not ref_seqs:
+        return []
+    mesh = mesh or make_mesh()
+    _one_process(mesh, "the sequence-sharded map")
+    nd = mesh.shape["data"]
+    k = query_sbwt.k
+    if opts.call_variants and (k != opts.sbwt_build_opts.k
+                               or opts.sbwt_build_opts.add_revcomp):
+        raise ValueError(
+            "the sequence-sharded map calls variants with the index's k and "
+            "the forward strand only"
+        )
+    threshold = random_match_threshold(k, query_sbwt.n_kmers, 4,
+                                       opts.max_error_prob)
+    if code_list is None:
+        code_list = [encode_ascii(bytes(r)) for r in ref_seqs]
+    codes, lengths = pad_batch(code_list, bucket=True)
+    Q, L = codes.shape
+    chunk = -(-L // nd)
+    if Q * L >= 2**31 or chunk < k:
+        raise ValueError(
+            f"a [{Q}, {L}] batch does not position-shard {nd} ways at k={k}"
+        )
+    # per-shard chunk + k-1 real left context (INVALID for shard 0: the
+    # unchunked buffer head), INVALID tail pad
+    cc = np.full((nd, Q, k - 1 + chunk), INVALID, dtype=np.uint8)
+    for s in range(nd):
+        lo = s * chunk
+        if lo < L:
+            c0 = max(0, lo - (k - 1))
+            seg = codes[:, c0 : min(L, lo + chunk)]
+            off = (k - 1) - (lo - c0)
+            cc[s, :, off : off + seg.shape[1]] = seg
+    ref_mat = np.zeros((Q, L), dtype=np.uint8)
+    for q, r in enumerate(ref_seqs):
+        ref_mat[q, : len(r)] = np.frombuffer(bytes(r), dtype=np.uint8)
+
+    holder = _SeqShardedDev(index_replicas(query_sbwt, mesh), k, mesh,
+                            [c[0] for c in shard_rows(mesh, cc)])
+    d0 = mesh.devices[0]
+    codes_dev = torch.from_numpy(codes).to(d0)
+    lengths_dev = torch.from_numpy(lengths).to(d0)
+    ref_mat_dev = torch.from_numpy(ref_mat).to(d0)
+    with stage("map_sweep", bases=sum(c.size for c in code_list)):
+        ms_dev, uniq_dev, rows_dev = _seqsh_stage1(holder, L)
+        cap_d = _pow2_cap(L // 1024)
+        cap_g = _pow2_cap(L // 1536, lo=256)
+        while True:
+            with device_scope(d0):
+                chars_dev, packed_dev, pieces = map_postprocess3_core(
+                    ms_dev, uniq_dev, rows_dev, lengths_dev, k, threshold,
+                    cap_d, cap_g, max(k - threshold + 1, 1),
+                )
+                try:
+                    return map_devref_finish(
+                        holder, codes_dev, lengths_dev, ms_dev, chars_dev,
+                        pieces, packed_dev, ref_seqs, query_sbwt, opts,
+                        threshold, cap_d, cap_g,
+                        total_gap_slack=cap_g * 2 + 64, ref_mat=ref_mat,
+                        ref_mat_dev=ref_mat_dev,
+                    )
+                except DevRefOverflow as o:
+                    cap_d = _pow2_cap(o.need_d)
+                    cap_g = _pow2_cap(o.need_g)

@@ -70,6 +70,39 @@ def pad_batch(code_list: list[np.ndarray], L: int | None = None, bucket=False):
     return codes, lengths
 
 
+def pack_codes_host(codes: np.ndarray, lengths) -> np.ndarray | None:
+    """2-bit pack a clean [Q, L] code batch, 4 bases a byte, base j of a
+    byte in bits 2j..2j+1 (the order of kernels.mapsweep.pack_ascii_host):
+    the mesh find path's query upload is a quarter of the raw bytes.
+    Returns None when any in-length code is outside 1..4 (N runs, '$') or
+    L % 4 != 0: the caller uploads the raw batch. Tail padding needs no
+    exception list: :func:`decode_packed_codes_device` writes INVALID past
+    each row's length."""
+    Q, L = codes.shape
+    if L % 4:
+        return None
+    lens = np.asarray(lengths)[:Q]
+    in_len = np.arange(L, dtype=np.int64)[None, :] < lens[:, None]
+    if (in_len & ((codes < 1) | (codes > 4))).any():
+        return None
+    v = (
+        np.where(in_len, codes, 1).astype(np.uint8) - np.uint8(1)
+    ).reshape(Q, L // 4, 4).view(np.uint32)[..., 0] & np.uint32(0x03030303)
+    return ((v | (v >> 6) | (v >> 12) | (v >> 18)) & 0xFF).astype(np.uint8)
+
+
+def decode_packed_codes_device(packed4: torch.Tensor,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    """Device twin of :func:`pack_codes_host`: the exact [Q, L] codes (1..4
+    within each row's length, INVALID past it)."""
+    Q, Lp = packed4.shape
+    parts = [(packed4 >> (2 * j)) & 3 for j in range(4)]
+    u2 = torch.stack(parts, dim=-1).reshape(Q, Lp * 4) + 1
+    idx = torch.arange(Lp * 4, dtype=torch.int32, device=packed4.device)
+    in_len = idx[None, :] < lengths.to(torch.int32)[:, None]
+    return torch.where(in_len, u2, INVALID).to(torch.uint8)
+
+
 def _run_pipeline(index, code_list, threshold: int, device):
     from kbo_tpu_torch.engine import device_index
 

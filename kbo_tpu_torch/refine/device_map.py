@@ -16,6 +16,12 @@ touches candidate data only on the rare fallback paths:
   evaluator (refine/gap_filling.py) from the device's candidate grid, then
   one re-assembly.
 
+Over a ``data`` mesh (kbo_tpu_torch.parallel.mesh) the contig-sharded map
+(:func:`map_devref_data_sharded`) runs the whole refinement per shard as
+one function (:func:`devref_core`) and pays one gather of the per-shard
+delta blocks; the sequence-sharded map splits gap slots and the variant
+join's sequence table inside :func:`map_devref_finish`.
+
 Reference semantics: map = src/lib.rs:720-761; variant calling =
 src/variant_calling.rs:249-294; gap filling = src/gap_filling.rs:444-526.
 """
@@ -25,9 +31,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from kbo_tpu_torch.kernels import mapsweep
 from kbo_tpu_torch.kernels.mapsweep import (
     assemble_map_prio_core,
     fetch_delta_runs_extras,
+    map_postprocess3_core,
 )
 from kbo_tpu_torch.kernels.refine import (
     get_ext_table,
@@ -37,6 +45,7 @@ from kbo_tpu_torch.kernels.refine import (
     seq_keys3_tagged_core,
     seq_keys3_tagged_rc,
 )
+from kbo_tpu_torch.pipeline import pad_batch
 from kbo_tpu_torch.refine import gap_filling
 from kbo_tpu_torch.utils.stats import get_stats
 
@@ -114,7 +123,8 @@ def map_devref_finish(
 ):
     """Run the device refinement + assembly and reconstruct the output.
 
-    ``dev`` is the index's :class:`~kbo_tpu_torch.kernels.ms.DeviceIndex`,
+    ``dev`` is the index's :class:`~kbo_tpu_torch.kernels.ms.DeviceIndex`
+    (or the sequence-sharded map's holder, kbo_tpu_torch.parallel.mesh),
     ``codes_dev`` / ``ms_dev`` the sweep's [Q, L] codes and MS,
     ``chars_dev`` / ``packed_dev`` / ``pieces`` the postprocess outputs
     (kernels/mapsweep.map_postprocess3_core), ``ref_mat`` the padded [Q, L]
@@ -143,15 +153,40 @@ def map_devref_finish(
     # flags the owning gaps to the host evaluator, so undersizing costs a
     # host pass, not correctness
     cap_ext = _pow2_cap(max(4 * cap_g, 32 * Q), lo=256)
-    if opts.fill_gaps:
-        gpos, gpv, needs_host_dev, gap_counters_dev = score_gaps_core(
-            dev.keys3, ref_mat_dev, lengths_dev, pieces["gap_start"],
-            pieces["gap_end_at"], pieces["grid"], threshold, k, cap_ge,
-            cap_ext, get_ext_table(dev), prob_bound(opts.max_error_prob),
+    # a sequence-sharded holder (parallel.mesh._SeqShardedDev) splits the
+    # gap slots and the variant join's sequence table over its mesh
+    seq_mesh = getattr(dev, "seq_mesh", None)
+    if seq_mesh is not None:
+        from kbo_tpu_torch.parallel.mesh import (
+            seqsh_resolve_variants,
+            seqsh_score_gaps,
         )
+    if opts.fill_gaps:
+        gap_args = (
+            ref_mat_dev, lengths_dev, pieces["gap_start"],
+            pieces["gap_end_at"], pieces["grid"], threshold,
+        )
+        bound = prob_bound(opts.max_error_prob)
+        if seq_mesh is not None:
+            gpos, gpv, needs_host_dev, gap_counters_dev = seqsh_score_gaps(
+                dev, *gap_args, bound, k, cap_ge, cap_ext
+            )
+        else:
+            gpos, gpv, needs_host_dev, gap_counters_dev = score_gaps_core(
+                dev.keys3, *gap_args, k, cap_ge, cap_ext, get_ext_table(dev),
+                bound,
+            )
         pos_grids.append(gpos)
         pv_grids.append(gpv)
-    if opts.call_variants:
+    if opts.call_variants and seq_mesh is not None:
+        vpos, vpv, n_var_dev = seqsh_resolve_variants(
+            dev, codes_dev, ref_mat_dev, ms_dev, lengths_dev,
+            pieces["drop_pos"], pieces["apos"], pieces["arow"], threshold, k,
+            cap_d, d_lo=max(int(threshold) - 1, 0),
+        )
+        pos_grids.append(vpos)
+        pv_grids.append(vpv)
+    elif opts.call_variants:
         seq_words = None
         if seq_tables is None:
             # the reference's inner sequence index reuses the BuildOpts
@@ -307,3 +342,149 @@ def _host_gap_patches(needs_host_dev, packed_dev, pieces, ref_seqs,
             extra_pos.append((pp + q * L).astype(np.int32))
             extra_pv.append(((1 << 8) | vv).astype(np.int32))  # gap priority
     return extra_pos, extra_pv, extra_unfilled
+
+
+# ---------------------------------------- data-parallel (contig-sharded)
+
+
+def devref_core(keys3, codes, ref_mat, lengths, ms, uniq, rows,
+                threshold: int, k: int, cap_d: int, cap_g: int, cap_ext: int,
+                cap_r: int, do_gaps: bool, do_vars: bool, fmt: bool,
+                d_lo: int = 0, w_grid: int | None = None, ext_tab=None,
+                bound: float | None = None):
+    """The whole post-sweep refinement of a [Q, L] contig block as one
+    function: postprocess, variant resolution, gap scoring, priority
+    assembly and the packed delta block. Every stage is contig-local, so
+    it runs per shard of a contig-sharded batch.
+
+    Returns (delta4 int32 [4, cap_r] -- :func:`fetch_delta_runs_extras`'s
+    layout, row 3 the run count, checksum and the counters that
+    :func:`map_devref_finish` fetches -- and needs_host bool [Q * cap_g]).
+    """
+    chars, _packed, pieces = map_postprocess3_core(
+        ms, uniq, rows, lengths, k, threshold, cap_d, cap_g, w_grid
+    )
+    Q = codes.shape[0]
+    device = codes.device
+    pos_grids, pv_grids = [], []
+    n_var = torch.zeros((), dtype=torch.int32, device=device)
+    gap_counters = torch.zeros(3, dtype=torch.int32, device=device)
+    needs_host = torch.zeros(Q * cap_g, dtype=torch.bool, device=device)
+    if do_gaps:
+        gpos, gpv, needs_host, gap_counters = score_gaps_core(
+            keys3, ref_mat, lengths, pieces["gap_start"], pieces["gap_end_at"],
+            pieces["grid"], threshold, k, cap_g, cap_ext, ext_tab, bound,
+        )
+        pos_grids.append(gpos)
+        pv_grids.append(gpv)
+    if do_vars:
+        vpos, vpv, n_var = resolve_variants_core(
+            keys3, seq_keys3_tagged_core(codes, k), codes, ref_mat, ms,
+            lengths, pieces["drop_pos"], pieces["apos"], pieces["arow"],
+            threshold, k, cap_d, d_lo=d_lo,
+        )
+        pos_grids.append(vpos)
+        pv_grids.append(vpv)
+    assembled = assemble_map_prio_core(chars, ref_mat, lengths, pos_grids,
+                                       pv_grids, fmt, cap_r)
+    counts = pieces["counts"]
+    extras = torch.cat([
+        counts[:, 0].max()[None],
+        counts[:, 1].max()[None],
+        needs_host.sum(dtype=torch.int32)[None],
+        gap_counters,
+        n_var[None],
+        pieces["clamped_gap"].sum(dtype=torch.int32)[None],
+    ])
+    return fetch_delta_runs_extras(*assembled, extras, cap_r), needs_host
+
+
+def map_devref_data_sharded(ref_seqs, query_sbwt, code_list, opts,
+                            threshold: int, mesh):
+    """Contig-sharded single-fetch map over a ``data`` mesh: the 3-bit
+    sweep AND the refinement (:func:`devref_core`) run per shard on its
+    replica of the index; the host pays one gather of the per-shard
+    [4, cap_r] delta blocks, again at larger capacities when candidates or
+    runs overflowed (at most three tries). Returns None when a gap needs
+    the exact host evaluator or the tries run out: the caller takes the
+    classic mesh sweep (kbo_tpu_torch.api._map_classic), so correctness
+    never rests on this path."""
+    from kbo_tpu_torch.parallel import mesh as pmesh
+
+    k = query_sbwt.k
+    nd = mesh.devices.size
+    codes, lengths = pmesh.pad_rows(*pad_batch(code_list, bucket=True), nd)
+    Q, L = codes.shape
+    ref_mat = np.zeros((Q, L), dtype=np.uint8)
+    for q, r in enumerate(ref_seqs):
+        ref_mat[q, : len(r)] = np.frombuffer(bytes(r), dtype=np.uint8)
+    reps = pmesh.index_replicas(query_sbwt, mesh)
+    codes_p = pmesh.shard_rows(mesh, codes)
+    ref_p = pmesh.shard_rows(mesh, ref_mat)
+    len_p = pmesh.shard_rows(mesh, lengths)
+    sweep_p = pmesh.map_shards(
+        mesh,
+        lambda dv, co: mapsweep.ms3_rows_sweep(dv.keys3, dv.rows_packed, co, k),
+        reps, codes_p,
+    )
+
+    # the single-device path's optimistic capacities
+    cap_d = _pow2_cap(L // 1024)
+    cap_g = _pow2_cap(L // 1536, lo=256)
+    q_per = Q // nd
+    cap_r_floor = 0
+    bound = prob_bound(opts.max_error_prob)
+    for _attempt in range(3):
+        cap_ext = _pow2_cap(max(4 * cap_g, 32 * q_per), lo=256)
+        cap_r = max(_pow2_cap(int(q_per * (L // 1024) + cap_g // 2 + 256)),
+                    cap_r_floor)
+
+        def shard(dv, co, rm, le, sw):
+            return devref_core(
+                dv.keys3, co, rm, le, *sw, threshold, k, cap_d, cap_g,
+                cap_ext, cap_r, bool(opts.fill_gaps),
+                bool(opts.call_variants), bool(opts.format),
+                d_lo=max(int(threshold) - 1, 0),
+                w_grid=max(k - int(threshold) + 1, 1),
+                ext_tab=get_ext_table(dv) if opts.fill_gaps else None,
+                bound=bound,
+            )[0][None]
+
+        blocks = pmesh.gather_to_host(mesh, pmesh.map_shards(
+            mesh, shard, reps, codes_p, ref_p, len_p, sweep_p))
+        max_d = int(blocks[:, 3, 2].max())
+        max_g = int(blocks[:, 3, 3].max())
+        if max_d > cap_d or max_g > cap_g:
+            cap_d = max(cap_d, _pow2_cap(max_d))
+            cap_g = max(cap_g, _pow2_cap(max_g))
+            continue
+        if int(blocks[:, 3, 4].sum()) > 0:
+            return None  # a gap for the host evaluator: the classic path
+        max_runs = int(blocks[:, 3, 0].max())
+        if max_runs > cap_r:
+            cap_r_floor = _pow2_cap(max_runs)
+            continue
+        break
+    else:
+        return None
+
+    stats = get_stats()
+    if opts.fill_gaps:
+        stats.add("gaps_seen", int(blocks[:, 3, 5].sum()))
+        stats.add("gaps_filled", int(blocks[:, 3, 6].sum()))
+        stats.add("gap_bases_unfilled", int(blocks[:, 3, 7].sum()))
+    else:
+        stats.add("gap_bases_unfilled", int(blocks[:, 3, 9].sum()))
+    if opts.call_variants:
+        stats.add("variants_called", int(blocks[:, 3, 8].sum()))
+
+    canvas, row_lens = _canvas(ref_seqs, Q, L, bool(opts.format), ref_mat)
+    for s, block in enumerate(blocks):
+        # shard s's flat positions are local to its q_per rows; runs never
+        # cross rows and padding rows have length 0, so painting clips them
+        n_runs = int(block[3, 0])
+        base = s * q_per * L
+        _paint_runs(canvas, block[0, :n_runs] + base, block[1, :n_runs] + base,
+                    block[2, :n_runs], L, row_lens)
+    return [canvas[q * L : q * L + row_lens[q]].tobytes()
+            for q in range(len(ref_seqs))]

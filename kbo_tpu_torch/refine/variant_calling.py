@@ -159,7 +159,9 @@ def call_variants(
     3. the query k-mer ending at each anchor and the reference k-mer of its
        row re-run against the other side, both batches on the device and
        fetched together as ONE uint8 transfer, then the vectorized case
-       analysis (:func:`_resolve_all`).
+       analysis (:func:`_resolve_all`). With a ``data`` ``mesh``
+       (kbo_tpu_torch.parallel.mesh) the re-runs against an index shard
+       over it; the other phases run on ``device``.
 
     ``sbwt_query`` is an :class:`SbwtIndex` or a raw code array (the
     reference's build-an-index-inside-call(), src/lib.rs:553: its k-mer
@@ -170,11 +172,6 @@ def call_variants(
     ``call_resolve``); the first three end in a fetch, so they include
     their device work.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "call_variants over a mesh: the multi-GPU layer is ROADMAP "
-            "Queue 1 item 8"
-        )
     if isinstance(sbwt_query, SbwtIndex):
         assert sbwt_ref.k == sbwt_query.k
     k = sbwt_ref.k
@@ -223,28 +220,41 @@ def call_variants(
         qk_codes = list(qk_mat.astype(np.uint8))
         rk_codes = [ref_kmers_codes[t] for t in range(len(sites))]
 
-        # both batches are independent: dispatch both, then ONE fetch of
-        # the stacked pair
-        ms_vs_ref_dev = engine.compute_ms_values_many_device(
-            sbwt_ref, qk_codes, device
-        )
-        if isinstance(sbwt_query, SbwtIndex):
-            ms_vs_query_dev = engine.compute_ms_values_many_device(
-                sbwt_query, rk_codes, device
-            )
+        if mesh is not None:
+            # the re-runs against an index shard over the mesh's ``data``
+            # axis; those against the raw sequence stay on one device
+            from kbo_tpu_torch.parallel.mesh import ms_values_many_sharded
+
+            ms_vs_ref = np.stack(
+                ms_values_many_sharded(sbwt_ref, qk_codes, mesh))
+            if isinstance(sbwt_query, SbwtIndex):
+                ms_vs_query = np.stack(
+                    ms_values_many_sharded(sbwt_query, rk_codes, mesh))
+            else:
+                ms_vs_query = np.stack(engine.compute_ms_values_vs_seq(
+                    sbwt_query, rk_codes, k, device))
         else:
-            # raw encoded sequence: the join against its window keys
-            ms_vs_query_dev = engine.compute_ms_values_vs_seq_device(
-                sbwt_query, rk_codes, k, ms_vs_ref_dev.device
+            # both batches are independent: dispatch both, then ONE fetch
+            # of the stacked pair
+            ms_vs_ref_dev = engine.compute_ms_values_many_device(
+                sbwt_ref, qk_codes, device
             )
-        # MS values are in [0, k] (k <= 254): the pair crosses as uint8
-        both = torch.stack([ms_vs_ref_dev, ms_vs_query_dev]).to(torch.uint8)
-        both = both.cpu().numpy().astype(np.int64)
+            if isinstance(sbwt_query, SbwtIndex):
+                ms_vs_query_dev = engine.compute_ms_values_many_device(
+                    sbwt_query, rk_codes, device
+                )
+            else:
+                # raw encoded sequence: the join against its window keys
+                ms_vs_query_dev = engine.compute_ms_values_vs_seq_device(
+                    sbwt_query, rk_codes, k, ms_vs_ref_dev.device
+                )
+            # MS values are in [0, k] (k <= 254): the pair crosses as uint8
+            both = torch.stack([ms_vs_ref_dev, ms_vs_query_dev]).to(torch.uint8)
+            both = both.cpu().numpy().astype(np.int64)
+            ms_vs_ref, ms_vs_query = both[0], both[1]
     with stage("call_resolve"):
-        return _resolve_all(
-            sites, ref_kmers_codes, qk_ascii, both[0, :, :k], both[1, :, :k],
-            d,
-        )
+        return _resolve_all(sites, ref_kmers_codes, qk_ascii,
+                            ms_vs_ref[:, :k], ms_vs_query[:, :k], d)
 
 
 def _anchors(sbwt_ref, codes, n: int, k: int, d: int, drops, ms, ivals,

@@ -145,7 +145,14 @@ def test_find_batch_vs_kbo_tpu(seed, gap):
 def test_find_batch_guards():
     idx = kbo_tpu_torch.build([b"ACGTACGTAGGATTACA"], kbo_tpu_torch.BuildOpts(k=5))
     assert kbo_tpu_torch.find_batch([], idx, device="cpu") == []
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kbo_tpu_torch.find_batch([b"ACGT"], idx, mesh=object(), device="cpu")
+    # a data mesh (ROADMAP item 8a) takes no device= beside it; the model
+    # axis is item 8b
+    from kbo_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="mesh"):
+        kbo_tpu_torch.find_batch([b"ACGT"], idx,
+                                 mesh=make_mesh(2, device="cpu"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8b"):
+        make_mesh(2, axis="model", device="cpu")
     with pytest.raises(TypeError, match="build_device"):
         kbo_tpu_torch.find_batch([b"ACGT"], object(), device="cpu")

@@ -161,9 +161,16 @@ def test_call_doctest():
                         reference, jopts)
     assert _tuples(got) == _tuples(want) == [
         (22, b"AGG", b""), (42, b"T", b"C"), (60, b"", b"C")]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        kbo_tpu_torch.call(kbo_tpu_torch.build([query], opts.sbwt_build_opts),
-                           reference, opts, mesh=object(), device="cpu")
+    # over a data mesh (ROADMAP item 8a): the k-mer re-runs shard, the
+    # result does not change; a mesh takes no device=
+    from kbo_tpu_torch.parallel.mesh import make_mesh
+
+    index = kbo_tpu_torch.build([query], opts.sbwt_build_opts)
+    mesh = make_mesh(3, device="cpu")
+    assert _tuples(kbo_tpu_torch.call(index, reference, opts, mesh=mesh)) \
+        == _tuples(want)
+    with pytest.raises(ValueError, match="mesh"):
+        kbo_tpu_torch.call(index, reference, opts, mesh=mesh, device="cpu")
 
 
 def _pair(n=8000):

@@ -756,3 +756,94 @@ def test_map_254_on_card_equals_cpu(cuda, fmt):
     want = kbo_tpu_torch.map_(ref, idx, opts, device="cpu")
     assert got == want and len(got) == len(ref)
     assert (b"-" in got) if fmt else (set(got) - set(b"MX-R"))
+
+
+# ------------------------------------------------ the mesh on the card
+
+
+def _mesh_pair(n=30_000):
+    """A reference and its indexed query: a SNP every 900 bases and a 2-base
+    deletion (kbo_tpu's tests/test_mesh_map.py pair)."""
+    rng = np.random.default_rng(9)
+    ref = BASES[rng.integers(0, 4, n)].tobytes()
+    q = bytearray(ref)
+    for pos in range(700, n - 700, 900):
+        q[pos] = BASES[(np.searchsorted(BASES, q[pos]) + 1) % 4]
+    del q[n // 2 : n // 2 + 2]
+    return ref, bytes(q)
+
+
+def _routed_map(refs, idx, opts, **kw):
+    from kbo_tpu_torch.utils.stats import get_stats, reset_stats
+
+    reset_stats()
+    out = kbo_tpu_torch.map_batch(refs, idx, opts, **kw)
+    return out, sorted(k for k in get_stats().as_dict()
+                       if k.startswith("mesh_"))
+
+
+def test_mesh_find_and_call_on_card(cuda):
+    """find_batch (both gap settings) and call over four shards on one card
+    equal the single-device calls on it."""
+    from kbo_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(4, device="cuda:0")
+    assert all(d == torch.device("cuda", 0) for d in mesh.devices)
+    ref, query = _mesh_pair()
+    bo = kbo_tpu_torch.BuildOpts(k=51, build_select=True)
+    idx = kbo_tpu_torch.build([query], bo)
+    qs = [ref[s : s + 700 + s % 300] for s in range(0, 25_000, 1900)]
+    for gap in (0, 5):
+        fo = kbo_tpu_torch.FindOpts(max_gap_len=gap)
+        assert kbo_tpu_torch.find_batch(qs, idx, fo, mesh=mesh) == \
+            kbo_tpu_torch.find_batch(qs, idx, fo, device=cuda)
+    co = kbo_tpu_torch.CallOpts(sbwt_build_opts=bo)
+    got = kbo_tpu_torch.call(idx, ref, co, mesh=mesh)
+    want = kbo_tpu_torch.call(idx, ref, co, device=cuda)
+    assert got == want and want
+
+
+@pytest.mark.parametrize("route", ["seq", "data", "classic"])
+def test_mesh_map_routes_on_card(cuda, route):
+    """Each of map_batch's mesh routes over four shards on one card equals
+    the single-device map_batch on it, byte for byte."""
+    from kbo_tpu_torch.parallel.mesh import make_mesh
+
+    ref, query = _mesh_pair()
+    k = 151 if route == "classic" else 51
+    bo = kbo_tpu_torch.BuildOpts(k=k, build_select=True)
+    idx = kbo_tpu_torch.build([query], bo)
+    refs = [ref] if route == "seq" else [
+        ref[i * 3500 : (i + 1) * 3500] for i in range(8)]
+    for fmt in (True, False):
+        opts = kbo_tpu_torch.MapOpts(format=fmt, sbwt_build_opts=bo)
+        got, taken = _routed_map(refs, idx, opts,
+                                 mesh=make_mesh(4, device="cuda:0"))
+        assert taken == [f"mesh_route_{route}"]
+        assert got == kbo_tpu_torch.map_batch(refs, idx, opts, device=cuda)
+
+
+def test_mesh_on_a_second_card(cuda):
+    """Shards on cuda:1 allocate nothing on cuda:0 (each shard's work runs
+    under its own card), and a mesh over two cards equals one card."""
+    from kbo_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    ref, query = _mesh_pair()
+    bo = kbo_tpu_torch.BuildOpts(k=51, build_select=True)
+    idx = kbo_tpu_torch.build([query], bo)
+    opts = kbo_tpu_torch.MapOpts(sbwt_build_opts=bo)
+    qs = [ref[s : s + 900] for s in range(0, 25_000, 2100)]
+    torch.cuda.synchronize(0)
+    torch.cuda.reset_peak_memory_stats(0)
+    base = torch.cuda.memory_allocated(0)
+    on1 = make_mesh(2, device="cuda:1")
+    got_find = kbo_tpu_torch.find_batch(qs, idx, mesh=on1)
+    got_map = kbo_tpu_torch.map_batch([ref], idx, opts, mesh=on1)
+    torch.cuda.synchronize(0)
+    assert torch.cuda.max_memory_allocated(0) == base
+    both = make_mesh(2)
+    assert kbo_tpu_torch.find_batch(qs, idx, mesh=both) == got_find
+    assert kbo_tpu_torch.map_batch([ref], idx, opts, mesh=both) == got_map
+    assert got_map == kbo_tpu_torch.map_batch([ref], idx, opts, device=cuda)

@@ -40,6 +40,8 @@ def test_scan_covers_the_port():
     assert "kbo_tpu_torch/index/sbwt_format.py" in names
     assert "kbo_tpu_torch/refine/gap_filling.py" in names
     assert "kbo_tpu_torch/ops/ms.py" in names
+    assert "kbo_tpu_torch/parallel/mesh.py" in names
+    assert "kbo_tpu_torch/parallel/distributed.py" in names
     assert "chip_smoke.py" in names
 
 

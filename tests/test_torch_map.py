@@ -240,10 +240,13 @@ def test_map_refinement_equals_kbo_tpu(kw):
 
 def test_map_other_paths_raise():
     tidx, _ = _both_indexes(b"ACGTACGTAGGATTACAGATTACA", 5)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh (ROADMAP item 8a) names the devices: no device= beside it
+    from kbo_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="mesh"):
         kbo_tpu_torch.map_batch([b"ACGTACGTAGG"], tidx,
-                                _opts(kbo_tpu_torch, True), mesh=object(),
-                                device="cpu")
+                                _opts(kbo_tpu_torch, True),
+                                mesh=make_mesh(2, device="cpu"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             kbo_tpu_torch.map_(b"ACGTACGTAGG", tidx, _opts(kbo_tpu_torch, True))
