@@ -118,6 +118,24 @@ Phases, each printed as it passes; any failure exits non-zero:
    processes on the one card (this script with --mesh-worker, joined by a
    gloo group): matches_batch_sharded over the 2 x 2 global mesh and the
    per-process map merge, both digests equal to one process's;
+6d. the single-core engine (kbo_tpu_torch/native.py over native_src's
+   kbo_cpu.cpp and kbo_refine.cpp) as the oracle at bench size:
+   native.map_e2e over the pair on one CPU core, its byte mismatches
+   against phase 5's default map_ counted (any fails the run);
+   native.ms_stream against the card's kernels.ms.query_ms_device, MS and
+   colex intervals at every position; native derandomize + translate
+   against the card's derandomize_translate on the same row; the kernels
+   at query_ms_device's shapes (the 3-bit join, the interval merge of about
+   14 M slots) against their plain versions;
+6e. the model axis: make_mesh(4, axis="model", device="cuda:0"), the key
+   table split over four shards on the one card (Sharded3Index: each
+   shard's columns and bytes printed), ms3_rows_sweep_index_sharded over
+   the streamed side against the single-device ms3_rows_sweep and
+   matches_batch_index_sharded over phase 4's 512 x 4096 batch against the
+   single-device matches_batch, with launch counts; merge_path and both
+   clamp_scan directions at a rows shard (W = 6, bits = 3) and a matches
+   shard (W = 4, bits = 2), and derandomize_translate at the matches'
+   batch, against their plain versions;
 7. times on the card (CUDA events or the host clock, medians of 7, of 3
    for gap filling's host numpy at full width; by
    stage, the refinement's stages and the per-index extension table
@@ -132,7 +150,9 @@ Phases, each printed as it passes; any failure exits non-zero:
    at k=151 by the host clock, by its host steps from the run's stats and
    by device stage, the k=254 and 8-contig maps, the k=51 2-bit flow
    beside the default route, the over-budget sweep; each mesh call
-   beside its single-device twin, the k=151 one once), each with the card's
+   beside its single-device twin, the k=151 one once; native ms_stream
+   beside query_ms_device and map_e2e beside map_; the model axis's two
+   calls beside their single-device twins), each with the card's
    name and power limit, then one torch.profiler run of each workload (and
    of one bitonic merge and one bitonic sort, by pass kind): device busy
    share and the kernels that take the time.
@@ -375,8 +395,8 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = native.build()
     native.lib()
-    print(f"build: the native host library (native_src/pack.cpp, fastx.cpp) "
-          f"compiled/loaded in {time.perf_counter() - t0:.1f}s (g++ "
+    print(f"build: the native host library (native_src/pack.cpp, fastx.cpp, "
+          f"kbo_cpu.cpp, kbo_refine.cpp) compiled/loaded in {time.perf_counter() - t0:.1f}s (g++ "
           f"{secs:.1f}s)", flush=True)
     for src in ("merge_path", "clamp_scan", "bitonic", "derand_translate"):
         for name, regs, stack, st, ld in _ptxas_summary(
@@ -2009,6 +2029,152 @@ def main() -> int:
           f"children's start); phase 6c {time.perf_counter() - t6c:.1f}s",
           flush=True)
 
+    # ---- 6d. the single-core engine as the oracle at bench size: the
+    # native map (native.map_e2e, one CPU core, the host index above)
+    # against phase 5's default map_ byte for byte; the native streaming MS
+    # and intervals against the card's query_ms_device (the 3-bit join and
+    # the interval probe, about 14 M merged slots) at every position; native
+    # derandomize + translate against the card's derandomize_translate on
+    # the same row
+    t6d = time.perf_counter()
+    t = time.perf_counter()
+    nat_out, nat_var = native.map_e2e(index, ref, threshold, 1e-7)
+    t_native = (time.perf_counter() - t) * 1e3
+    dmap = dmap_gpu[True]
+    if len(nat_out) != len(dmap):
+        raise SystemExit(f"FAIL native map_e2e gives {len(nat_out)} bytes, "
+                         f"the card's map_ {len(dmap)}")
+    mismatches = int((np.frombuffer(nat_out, np.uint8)
+                      != np.frombuffer(dmap, np.uint8)).sum())
+    print(f"{tag} native map_e2e over {n} bases (one CPU core, host clock, "
+          f"one run): {t_native:.3f} ms ({n / t_native * 1e3 / 1e6:.2f} "
+          f"Mbases/s), {nat_var} variants called (the card's map_: "
+          f"{dstats[True]['variants_called']} resolved); byte mismatches "
+          f"against the card's default map_: {mismatches}", flush=True)
+    if mismatches:
+        raise SystemExit(f"FAIL native map_e2e and the card's map_ differ at "
+                         f"{mismatches} bytes")
+    t = time.perf_counter()
+    nat_ms, nat_iv = native.ms_stream(index, codes)
+    t_stream = (time.perf_counter() - t) * 1e3
+    reset_counts()
+    (qms, qiv), qargs = capture(lambda: ms_mod.query_ms_device(dev, codes),
+                                [(ms_mod, "merge_path"),
+                                 (ms_mod, "clamp_scan")])
+    launches["query_ms_device"] = read_counts(
+        "query_ms_device",
+        {**ONE_JOIN, "merge_path": 2, "derandomize_translate": 0})
+    if not (np.array_equal(qms, nat_ms) and np.array_equal(qiv, nat_iv)):
+        bad = int(((qms != nat_ms) | (qiv != nat_iv).any(axis=1)).sum())
+        raise SystemExit(f"FAIL query_ms_device differs from native ms_stream "
+                         f"at {bad} positions")
+    t = time.perf_counter()
+    nat_chars = native.translate(native.derandomize(nat_ms, K, threshold), K,
+                                 threshold)
+    t_nat_dt = (time.perf_counter() - t) * 1e3
+    ms_row = torch.from_numpy(nat_ms.astype(np.int32)).to(cuda)
+    card_chars = derandomize_translate(ms_row, K, threshold).cpu().numpy()
+    if not np.array_equal(card_chars, nat_chars):
+        raise SystemExit(f"FAIL derandomize_translate differs from native "
+                         f"derandomize + translate at "
+                         f"{int((card_chars != nat_chars).sum())} positions")
+    ref_shapes = {"reference ms3": qargs["merge_path"][0],
+                  "reference intervals": qargs["merge_path"][1]}
+    ref_scans = {"reference ms3": qargs["clamp_scan"][0]}
+    for label, ops in ref_shapes.items():
+        check("merge_path", f"{label} W={ops[0].shape[0]} "
+              f"na={ops[0].shape[1]} nb={ops[2].shape[1]}",
+              merge_path(*ops), merge_path_plain(*ops))
+    for label, (sw, cp, bits) in ref_scans.items():
+        for rev in (False, True):
+            check("clamp_scan", f"{label} bits={bits} W={sw.shape[0]} "
+                  f"reverse={rev} M={sw.shape[1]}",
+                  [clamp_scan(sw, cp, bits, rev)],
+                  [clamp_scan_plain(sw, cp, bits, rev)])
+    print(f"native: ms_stream over {n} bases ({t_stream:.3f} ms, host clock) "
+          f"equals the card's query_ms_device, MS and intervals at every "
+          f"position (launches {json.dumps(launches['query_ms_device'])}); "
+          f"native derandomize + translate ({t_nat_dt:.3f} ms) equals the "
+          f"card's derandomize_translate on the same row; phase 6d "
+          f"{time.perf_counter() - t6d:.1f}s", flush=True)
+    del qms, qiv, nat_ms, nat_iv, ms_row, card_chars, nat_chars
+
+    # ---- 6e. the model axis: the key table split over four shards on the
+    # one card (Sharded3Index, no shard holding the whole table), the
+    # index-sharded rows sweep over the streamed side against the
+    # single-device ms3_rows_sweep, the index-sharded matches over phase
+    # 4's batch against the single-device matches_batch, with launch counts;
+    # then the kernels at the per-shard shapes against their plain versions
+    t6e = time.perf_counter()
+    mm = pmesh.make_mesh(4, axis="model", device="cuda:0")
+    t = time.perf_counter()
+    sidx = pmesh.Sharded3Index(index, mm)
+    torch.cuda.synchronize()
+    t_sidx = (time.perf_counter() - t) * 1e3
+    whole = index.keys3.nbytes + 2 * index.n_rows
+    for i in range(mm.devices.size):
+        lo = i * sidx.shard_cols
+        real = max(0, min(sidx.shard_cols, index.n_rows - lo))
+        print(f"model shard {i} on {mm.devices[i]}: keys3 columns [{lo}, "
+              f"{lo + sidx.shard_cols}) ({real} rows, "
+              f"{sidx.shard_cols - real} pad), {sidx.shard_bytes} B of the "
+              f"whole table's {whole} B", flush=True)
+    model_names = [(ms_mod, "merge_path"), (ms_mod, "clamp_scan"),
+                   (pmesh, "derandomize_translate")]
+    PER_MODEL = {**ONE_JOIN, "merge_path": 4, "clamp_scan": 8}
+    reset_counts()
+    rows_sh, margs_rows = capture(
+        lambda: pmesh.ms3_rows_sweep_index_sharded(sidx, mcodes, mm),
+        model_names)
+    launches["ms3_rows_sweep_index_sharded"] = read_counts(
+        "ms3_rows_sweep_index_sharded",
+        {**PER_MODEL, "derandomize_translate": 0})
+    uq = single[1]
+    if not (torch.equal(rows_sh[0], single[0]) and torch.equal(rows_sh[1], uq)
+            and torch.equal(rows_sh[2][uq], single[2][uq])):
+        raise SystemExit("FAIL ms3_rows_sweep_index_sharded differs from the "
+                         "single-device ms3_rows_sweep")
+    bcode_list = [encode_ascii(q) for q in q_list]
+    match_single = pipeline_mod.matches_batch(index, bcode_list, threshold,
+                                              cuda)
+    reset_counts()
+    match_sh, margs_match = capture(
+        lambda: pmesh.matches_batch_index_sharded(index, bcode_list,
+                                                  threshold, mm),
+        model_names)
+    launches["matches_batch_index_sharded"] = read_counts(
+        "matches_batch_index_sharded", PER_MODEL)
+    if len(match_sh) != QN or not all(
+            np.array_equal(a, b) for a, b in zip(match_sh, match_single)):
+        raise SystemExit("FAIL matches_batch_index_sharded differs from the "
+                         "single-device matches_batch")
+    model_shapes = {"model rows shard": margs_rows["merge_path"][0],
+                    "model matches shard": margs_match["merge_path"][0]}
+    model_scans = {"model rows shard": margs_rows["clamp_scan"][0],
+                   "model matches shard": margs_match["clamp_scan"][0]}
+    model_dt = {"model matches shard":
+                margs_match["derandomize_translate"][0]}
+    for label, ops in model_shapes.items():
+        check("merge_path", f"{label} W={ops[0].shape[0]} "
+              f"na={ops[0].shape[1]} nb={ops[2].shape[1]}",
+              merge_path(*ops), merge_path_plain(*ops))
+    for label, (sw, cp, bits) in model_scans.items():
+        for rev in (False, True):
+            check("clamp_scan", f"{label} bits={bits} W={sw.shape[0]} "
+                  f"reverse={rev} M={sw.shape[1]}",
+                  [clamp_scan(sw, cp, bits, rev)],
+                  [clamp_scan_plain(sw, cp, bits, rev)])
+    for label, (dms, _k, _t, dtl) in model_dt.items():
+        check_dt(f"{label} {dms.shape[0]}x{dms.shape[1]}", dms, dtl)
+    print(f"model: Sharded3Index over 4 shards on cuda:0 built in "
+          f"{t_sidx:.3f} ms (host clock, one run); "
+          f"ms3_rows_sweep_index_sharded over {Lm} positions "
+          f"({int(uq.sum())} unique) equals ms3_rows_sweep; "
+          f"matches_batch_index_sharded[{QN}x{QL}] equals matches_batch; "
+          f"launches {json.dumps({p: launches[p] for p in ('ms3_rows_sweep_index_sharded', 'matches_batch_index_sharded')})}"
+          f"; phase 6e {time.perf_counter() - t6e:.1f}s", flush=True)
+    del rows_sh, match_sh
+
     # ---- 7. times on the card
     def dev_ms(fn):
         fn()
@@ -2452,6 +2618,33 @@ def main() -> int:
           f"(median of 3); route {mesh_routes[path151]}; launches "
           f"{json.dumps(launches[path151])}", flush=True)
 
+    # the single-core engine beside the card (host clock), and the model
+    # axis's two calls beside their single-device twins (host clock,
+    # medians of 7)
+    t_qms = host_ms(lambda: ms_mod.query_ms_device(dev, codes))
+    t_stream = host_ms(lambda: native.ms_stream(index, codes), 3)
+    print(f"{tag} native ms_stream over {n} bases (one CPU core): "
+          f"{t_stream:.3f} ms (median of 3); the card's query_ms_device "
+          f"{t_qms:.3f} ms (host clock, host in and out); native map_e2e "
+          f"{t_native:.3f} ms (one run) against the card's default map_ "
+          f"{t_maps['MapOpts()', True]:.3f} ms", flush=True)
+    model_calls = (
+        ("ms3_rows_sweep_index_sharded", f"ms3_rows_sweep over {Lm} "
+         f"positions",
+         lambda: pmesh.ms3_rows_sweep_index_sharded(sidx, mcodes, mm),
+         lambda: mapsweep.ms3_rows_sweep(dev.keys3, dev.rows_packed, mcodes,
+                                         K)),
+        ("matches_batch_index_sharded", f"matches_batch[{QN}x{QL}]",
+         lambda: pmesh.matches_batch_index_sharded(index, bcode_list,
+                                                   threshold, mm),
+         lambda: pipeline_mod.matches_batch(index, bcode_list, threshold,
+                                            cuda)),
+    )
+    for path, label, fn, twin in model_calls:
+        print(f"{tag} model {label} over 4 shards on cuda:0: "
+              f"{host_ms(fn):.3f} ms; single-device {host_ms(twin):.3f} ms; "
+              f"launches {json.dumps(launches[path])}", flush=True)
+
     # each kernel alone at the find-core and map shapes, beside its plain
     # version, its byte bound and (where there is one) a library call: the
     # bare torch.sort passes of the radix sort over the same keys
@@ -2614,6 +2807,37 @@ def main() -> int:
             f"Q={Qd}, L={Ld}, k={dk}",
         )
 
+    # the reference helper's and the model axis's shapes (captured in
+    # phases 6d and 6e)
+    for label, (ak, ap, bk, bp) in {**ref_shapes, **model_shapes}.items():
+        W = ak.shape[0]
+        M = ak.shape[1] + bk.shape[1]
+        rows.setdefault(label, {})["merge_path"] = (
+            dev_ms(lambda: merge_path(ak, ap, bk, bp)),
+            dev_ms(lambda: merge_path_plain(ak, ap, bk, bp)),
+            2 * M * (W + 1) * 4 / hbm * 1e3,
+            dev_ms(lib_sort_of(torch.cat([ak, bk], 1))),
+            f"M={M}, W={W}",
+        )
+    for label, (sw, cp, bits) in {**ref_scans, **model_scans}.items():
+        W, M = sw.shape
+        rows.setdefault(label, {})["clamp_scan"] = (
+            dev_ms(lambda: clamp_scan(sw, cp, bits, False)),
+            dev_ms(lambda: clamp_scan_plain(sw, cp, bits, False)),
+            ((W + 1) * 4 + 4) * M / hbm * 1e3,
+            None,
+            f"M={M}, W={W}, bits={bits}, one direction",
+        )
+    for label, (dms, dk, dthr, dtl) in model_dt.items():
+        Qd, Ld = dms.shape
+        rows.setdefault(label, {})["derandomize_translate"] = (
+            dev_ms(lambda: derandomize_translate(dms, dk, dthr, dtl)),
+            dev_ms(lambda: derandomize_translate_plain(dms, dk, dthr, dtl)),
+            (5 * Qd * Ld + 4 * Qd) / hbm * 1e3,
+            None,
+            f"Q={Qd}, L={Ld}, k={dk}",
+        )
+
     # bitonic_merge: the same merge work as merge_path (bound and library
     # call as its row); bitonic_sort: one read and one write of the
     # operands, beside the radix sort's torch.sort passes on the same keys
@@ -2763,6 +2987,9 @@ def main() -> int:
     breakdown(f"map_batch[8x{len(contigs[0])}] MapOpts() over 4 shards on "
               f"cuda:0 (contig-sharded)",
               lambda: api.map_batch(contigs, index, dopts(True), mesh=m4))
+    breakdown(f"ms3_rows_sweep_index_sharded over {Lm} positions, 4 model "
+              f"shards on cuda:0",
+              lambda: pmesh.ms3_rows_sweep_index_sharded(sidx, mcodes, mm))
 
     src = "kbo_tpu_torch/kernels/csrc/"
     main = "map_ MapOpts() format=True"
@@ -2772,6 +2999,11 @@ def main() -> int:
                   ("mesh seq chunk", "map_batch mesh format=True"),
                   ("mesh seq variant join", "map_batch mesh format=True"),
                   ("mesh 8-contig shard", "map_batch mesh 8 contigs")]
+    # the reference helper's and the model axis's shapes, each with the
+    # launches of its one call
+    new_paths = [("reference ms3", "query_ms_device"),
+                 ("model rows shard", "ms3_rows_sweep_index_sharded"),
+                 ("model matches shard", "matches_batch_index_sharded")]
     # name: (source, TPU kernel, (shape, path whose launches it reports),
     #        other (shape, path) pairs)
     sources = {
@@ -2786,7 +3018,9 @@ def main() -> int:
                         ("full-index member", "member_widths"),
                         (f"map2 k={K151}", map151),
                         (f"interval k={K151}", map151),
-                        (f"map2 k={K254}", map254)] + mesh_paths),
+                        (f"map2 k={K254}", map254)] + mesh_paths
+                       + [("reference intervals", "query_ms_device")]
+                       + new_paths),
         "clamp_scan": ("clamp_scan.cu", "kbo_tpu/kernels/pallas_join.py:191",
                        ("map", main),
                        [("rk-vs-seq", main), ("find-core", "find-core"),
@@ -2799,7 +3033,7 @@ def main() -> int:
                         (f"vs-seq k={K151}", map151),
                         (f"map2 k={K254}", map254),
                         ("over-budget", "over-budget sweep")]
-                       + mesh_paths),
+                       + mesh_paths + new_paths),
         "derandomize_translate": (
             "derand_translate.cu", "attic/pallas_postprocess.py:258",
             ("map", main), [("find-core", "find-core"),
@@ -2810,7 +3044,8 @@ def main() -> int:
                             (f"map2 k={K151}", map151),
                             ("over-budget", "over-budget sweep")]
             + [(label, path) for label, path in mesh_paths
-               if label in mesh_dt]),
+               if label in mesh_dt]
+            + [("model matches shard", "matches_batch_index_sharded")]),
         "bitonic_merge": ("bitonic.cu", "kbo_tpu/kernels/pallas_sort.py:178",
                           ("find-core", "ms2_core merge=bitonic"),
                           [("map", "ms3_rows_core merge=bitonic"),

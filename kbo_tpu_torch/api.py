@@ -113,6 +113,8 @@ def find_batch(query_seqs: list[bytes], sbwt, find_opts: FindOpts | None = None,
             f"find_batch needs an SbwtIndex or an index from build_device, "
             f"not {type(sbwt).__name__}"
         )
+    if mesh is not None:
+        pmesh.require_data_axis(mesh, "find_batch")
     if mesh is not None and (seq_index or device is not None):
         raise ValueError(
             "find_batch over a mesh takes no device= and no build_device "
@@ -172,6 +174,7 @@ def call(sbwt_query: SbwtIndex, ref_seq: bytes,
     it and the other phases run on its first device (no ``device`` then).
     """
     if mesh is not None:
+        pmesh.require_data_axis(mesh, "call")
         if device is not None:
             raise ValueError("call over a mesh takes no device=")
         device = mesh.devices[mesh.local_shards[0]]
@@ -288,6 +291,8 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
     ``device`` then) takes one of three routes, see :func:`_map_batch_mesh`.
     """
     opts = map_opts or MapOpts()
+    if mesh is not None:
+        pmesh.require_data_axis(mesh, "map_batch")
     if mesh is not None and device is not None:
         raise ValueError("map_batch over a mesh takes no device=")
     if not ref_seqs:

@@ -25,6 +25,7 @@ from kbo_tpu_torch.kernels.ms import (
     intervals3_windows_core,
     ms2_core,
     ms3_batch_vs_seq_core,
+    query_ms_device,
     query_ms_values_device,
     resolve_device,
 )
@@ -51,6 +52,14 @@ def device_index(index, device=None) -> DeviceIndex:
         cached = (index, DeviceIndex(index, dev))
         _device_cache[key] = cached
     return cached[1]
+
+
+def compute_ms(index: SbwtIndex, codes: np.ndarray, device=None):
+    """(ms int64 [L], intervals int64 [L, 2]) of one encoded query: the
+    3-bit join and the interval probe on the device, whatever the query's
+    length (kbo_tpu's host cutoff is left out; ``ops.ms.query_ms_codes``
+    stays the test oracle)."""
+    return query_ms_device(device_index(index, device), np.asarray(codes))
 
 
 def compute_ms_values(index: SbwtIndex, codes: np.ndarray, device=None):

@@ -465,6 +465,84 @@ def ms3_rows_core(keys3, ref_packed, buf, k: int, want_qtable: bool = False,
     return ms, uniq, row
 
 
+_X24 = (1 << 24) - 1
+
+
+def ms3_rows_partial_core(keys3, lcs_down, lcs_up_next, row_offset: int, buf,
+                          k: int):
+    """One shard's half of the rows join over a prefix-sharded key table.
+
+    ``keys3`` [W, m] is a contiguous colex range of the table starting at
+    global row ``row_offset`` (all-ones pad columns past the table);
+    ``lcs_down`` / ``lcs_up_next`` [m] are the GLOBAL LCS values of its rows
+    (lcs[row_offset + i] and lcs[row_offset + i + 1], 0 past the table).
+    They ride the merge in the reference payload
+    ``((down | up << 7) << 8) | min(k, 254)``, as :func:`rows_ref_packed`
+    lays it out for the whole table. Returns two int64 [T] packs in buffer
+    order:
+
+        fpack = (f+1) << 32 | global_x << 8 | down     (0 = no row left)
+        bpack = (b+1) << 32 | (2^24-1 - global_x) << 8 | up
+
+    An elementwise max over the shards (``parallel.mesh.pmax``) gives the
+    global nearest-row data: the lcp first, then the row nearest the
+    query's insertion point (the largest x on the left, the smallest on the
+    right; a block over a shard edge makes two shards report one lcp).
+    :func:`ms3_rows_from_packed` finishes it. Rows ride 24 bits, so the
+    table holds fewer than 2^24 rows.
+    """
+    lcs_down = lcs_down.to(torch.int64)
+    lcs_up_next = lcs_up_next.to(torch.int64)
+    ref_packed = to_i32(((lcs_down | (lcs_up_next << 7)) << 8) | min(k, 254))
+    sw, spacked, is_ref, f, b, xl, near_down, near_up, _ = _rows_scan_pieces(
+        keys3, ref_packed, buf, k
+    )
+    T = buf.shape[0]
+    xl = xl.to(torch.int64)
+    gx_l = torch.clamp(xl + row_offset, 0, _X24)
+    gx_r = torch.clamp(xl + 1 + row_offset, 0, _X24)
+    fpack = torch.where(
+        f >= 0,
+        ((f.to(torch.int64) + 1) << 32) | (gx_l << 8) | near_down,
+        0,
+    )
+    bpack = torch.where(
+        b >= 0,
+        ((b.to(torch.int64) + 1) << 32) | ((_X24 - gx_r) << 8) | near_up,
+        0,
+    )
+    # back to buffer order by a scatter on slot id: reference slots go to a
+    # spare entry, as in ms3_rows_core
+    dest = torch.where(is_ref, T, (spacked >> 8) & 0xFFFFFF)
+    dest = torch.clamp(dest, max=T).to(torch.int64)
+    out = torch.zeros((2, T + 1), dtype=torch.int64, device=buf.device)
+    out[0].scatter_(0, dest, fpack)
+    out[1].scatter_(0, dest, bpack)
+    return out[0, :T], out[1, :T]
+
+
+def ms3_rows_from_packed(fpack, bpack, n_rows: int, k: int):
+    """Finish the sharded rows join: the max-reduced packs of
+    :func:`ms3_rows_partial_core` -> (ms int32, uniq bool, row int32), as
+    :func:`ms3_rows_core` gives them (rows where uniq holds)."""
+    gf = (fpack >> 32).to(torch.int32) - 1
+    xf = ((fpack >> 8) & _X24).to(torch.int32)
+    downf = (fpack & 0xFF).to(torch.int32)
+    gb = (bpack >> 32).to(torch.int32) - 1
+    xr = _X24 - ((bpack >> 8) & _X24).to(torch.int32)
+    upr = (bpack & 0xFF).to(torch.int32)
+    f = torch.clamp(gf, max=k)
+    b = torch.clamp(gb, max=k)
+    ms = torch.clamp(torch.maximum(f, b), min=0)
+    left_best = f > b
+    right_best = b > f
+    x = torch.where(left_best, xf, xr)
+    lcsv = torch.where(left_best, downf, torch.where(right_best, upr, 0))
+    uniq = ((ms > 0) & (left_best | right_best) & (lcsv < ms) & (x >= 0)
+            & (x < n_rows))
+    return ms, uniq, x
+
+
 def _intervals_from_keys(keys3, q_words, ms, merge: str = "path"):
     """Colex intervals [l, r) of the length-ms prefixes of the given 3-bit
     query keys, counted over ALL rows (dummies included -- the 3-bit key
@@ -484,6 +562,12 @@ def _intervals_from_keys(keys3, q_words, ms, merge: str = "path"):
     """
     W, P = q_words.shape
     n = keys3.shape[1]
+    if 2 * P + n >= 2**31 - 1:
+        # the probe slot rides the merge as an int32 payload
+        raise ValueError(
+            f"the interval probe merges {2 * P} probes with {n} rows: past "
+            f"the int32 slot payload's 2**31 - 1 slots"
+        )
     device = q_words.device
     w_off = 10 * torch.arange(W, dtype=torch.int64, device=device)[:, None]
     keep = torch.clamp(ms.to(torch.int64)[None] - w_off, 0, 10)
@@ -687,6 +771,23 @@ def query_ms_values_device(index, codes: np.ndarray, device=None):
     buf, L = make_flat_buffer(np.asarray(codes), dev.k)
     ms = ms2_core(dev.keys2, dev.cap2, torch.from_numpy(buf).to(dev.device), dev.k)
     return ms[dev.k - 1 : dev.k - 1 + L].cpu().numpy().astype(np.int64)
+
+
+def query_ms_device(index, codes: np.ndarray, device=None):
+    """MS values and colex intervals of one encoded query from the 3-bit
+    join (:func:`ms3_core`, then :func:`intervals3_core` over the same
+    flat buffer): (ms int64 [L], intervals int64 [L, 2]) on the host, the
+    device counterpart of ``kbo_tpu_torch.ops.ms.query_ms_codes``.
+    ``index`` is a :class:`DeviceIndex` (a :class:`DeviceFullIndex` too),
+    taken as it is, or an :class:`SbwtIndex` to upload to ``device``."""
+    dev = index if isinstance(index, DeviceIndex) else DeviceIndex(index, device)
+    buf, L = make_flat_buffer(np.asarray(codes), dev.k)
+    buf = torch.from_numpy(buf).to(dev.device)
+    ms = ms3_core(dev.keys3, buf, dev.k)
+    l, r = intervals3_core(dev.keys3, buf, ms, dev.k)
+    s = slice(dev.k - 1, dev.k - 1 + L)
+    out = torch.stack([ms[s], l[s], r[s]]).cpu().numpy().astype(np.int64)
+    return out[0], np.ascontiguousarray(out[1:].T)
 
 
 def query_ms_row_device(index, codes: np.ndarray, device=None):

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from kbo_tpu_torch.kernels import _build
-from kbo_tpu_torch.kernels.ms import _doubling_cummax
+from kbo_tpu_torch.kernels.ms import _doubling_cummax, resolve_device
 
 # alignment characters encoded as ASCII uint8
 _M, _X, _DASH, _R = ord("M"), ord("X"), ord("-"), ord("R")
@@ -189,6 +189,25 @@ def derandomize_translate_plain(ms: torch.Tensor, k: int, threshold: int,
     return translate_core(
         derandomize_core(ms, k, threshold, true_len), k, threshold, true_len
     )
+
+
+def derandomize_ms_device(noisy_ms: np.ndarray, k: int, threshold: int,
+                          device=None) -> np.ndarray:
+    """Derandomize one noisy MS row with host numpy I/O: int64 [L], through
+    :func:`derandomize_core` on ``device`` (the card unless named), as
+    kbo_tpu's helper runs its XLA core."""
+    noisy = torch.from_numpy(np.asarray(noisy_ms).astype(np.int32))
+    out = derandomize_core(noisy.to(resolve_device(device)), k, threshold)
+    return out.cpu().numpy().astype(np.int64)
+
+
+def translate_ms_device(derand_ms: np.ndarray, k: int, threshold: int,
+                        device=None) -> list[str]:
+    """Translate one derandomized MS row with host numpy I/O: the alignment
+    chars as a list of str, through :func:`translate_core` on ``device``."""
+    derand = torch.from_numpy(np.asarray(derand_ms).astype(np.int32))
+    out = translate_core(derand.to(resolve_device(device)), k, threshold)
+    return [chr(c) for c in out.cpu().numpy()]
 
 
 @functools.cache

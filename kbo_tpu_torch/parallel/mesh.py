@@ -24,8 +24,16 @@ on one card run every sharded path at real per-shard shapes).
 Several processes (kbo_tpu_torch.parallel.distributed) form one global mesh
 of every process's local devices; each process runs its own shards and
 ``gather_to_host`` fills in the rest. The collectives above need every
-shard in one process and raise otherwise. The ``model`` axis (the key table
-itself split across devices) and the 2-D mesh are ROADMAP Queue 1 item 8b.
+shard in one process and raise otherwise.
+
+A one-axis ``model`` mesh splits the KEY TABLE instead (prefix-sharded
+placement, for an index larger than one card's memory): shard i holds a
+contiguous colex range of the sorted join keys (:class:`Sharded3Index`, the
+2-bit keys in :func:`matches_batch_index_sharded`), the queries are
+replicated, and the per-shard partial joins meet in one :func:`pmax`. No
+API entry point takes it (in kbo_tpu neither); the refinement over the
+sharded table and the 2-D ``("data", "model")`` mesh are ROADMAP Queue 1
+item 8b.2.
 """
 
 from __future__ import annotations
@@ -46,8 +54,13 @@ from kbo_tpu_torch.kernels.ms import (
     DeviceIndex,
     device_scope,
     ms2_core,
+    ms3_rows_from_packed,
+    ms3_rows_partial_core,
 )
-from kbo_tpu_torch.kernels.postprocess import rle_segments_global_core
+from kbo_tpu_torch.kernels.postprocess import (
+    derandomize_translate,
+    rle_segments_global_core,
+)
 from kbo_tpu_torch.kernels.refine import (
     get_ext_table,
     resolve_variants_core,
@@ -69,11 +82,13 @@ from kbo_tpu_torch.pipeline import (
 from kbo_tpu_torch.utils.stats import stage
 
 _BIG32 = 2**31 - 1
-_ITEM_8B = "ROADMAP Queue 1 item 8b"
+_ITEM_8B2 = "ROADMAP Queue 1 item 8b.2"
+_AXES = ("data", "model")
 
 
 class Mesh:
-    """Devices along named axes; only the one-axis ``("data",)`` mesh.
+    """Devices along named axes: the one-axis ``("data",)`` or
+    ``("model",)`` mesh.
 
     ``devices`` is a numpy object array of ``torch.device`` (a device may
     repeat), ``axis_names`` the axis names, ``shape`` {axis: size}, as on a
@@ -85,10 +100,11 @@ class Mesh:
                  process_index: int = 0):
         devices = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
-        if axis_names != ("data",) or devices.ndim != 1:
+        if len(axis_names) != 1 or axis_names[0] not in _AXES \
+                or devices.ndim != 1:
             raise NotImplementedError(
-                f"a mesh with axes {axis_names}: the 'model' axis and the 2-D "
-                f"mesh are {_ITEM_8B}"
+                f"a mesh with axes {axis_names}: one 'data' or 'model' axis; "
+                f"the 2-D mesh is {_ITEM_8B2}"
             )
         if devices.size == 0 or devices.size % process_count:
             raise ValueError(
@@ -97,7 +113,7 @@ class Mesh:
             )
         self.devices = devices
         self.axis_names = axis_names
-        self.shape = {"data": int(devices.size)}
+        self.shape = {axis_names[0]: int(devices.size)}
         self.process_count = process_count
         per = devices.size // process_count
         self.local_shards = range(process_index * per,
@@ -106,7 +122,8 @@ class Mesh:
 
 def make_mesh(n_devices: int | None = None, axis: str = "data",
               device=None) -> Mesh:
-    """A one-axis mesh.
+    """A one-axis mesh over ``axis``, ``"data"`` (the batch splits) or
+    ``"model"`` (the key table splits).
 
     ``device`` None or ``"cuda"``: the first ``n_devices`` visible cards
     (all of them by default); raises when there are fewer, or none. A single
@@ -114,9 +131,10 @@ def make_mesh(n_devices: int | None = None, axis: str = "data",
     one device (required). In a multi-process run these are this process's
     devices, and the mesh holds every process's.
     """
-    if axis != "data":
+    if axis not in _AXES:
         raise NotImplementedError(
-            f"a mesh over the {axis!r} axis: {_ITEM_8B}"
+            f"a mesh over the {axis!r} axis: one 'data' or 'model' axis; the "
+            f"2-D mesh is {_ITEM_8B2}"
         )
     dev = None if device is None else torch.device(device)
     if dev is None or (dev.type == "cuda" and dev.index is None):
@@ -260,6 +278,29 @@ def psum(mesh: Mesh, parts) -> torch.Tensor:
     for p in parts[1:]:
         out = out + p.to(dst)
     return out
+
+
+def pmax(mesh: Mesh, parts) -> torch.Tensor:
+    """The elementwise maximum of the shards' tensors, on the first
+    device."""
+    _one_process(mesh, "pmax")
+    dst = mesh.devices[0]
+    out = parts[0].to(dst)
+    for p in parts[1:]:
+        out = torch.maximum(out, p.to(dst))
+    return out
+
+
+def require_data_axis(mesh: Mesh, what: str) -> None:
+    """Raise unless ``mesh`` shards over ``data``: the entry points split
+    batches, never the key table."""
+    if "data" not in mesh.axis_names:
+        raise ValueError(
+            f"{what} shards its batch over a 'data' mesh, not axes "
+            f"{mesh.axis_names}: a 'model' mesh splits the key table, which "
+            f"matches_batch_index_sharded and ms3_rows_sweep_index_sharded "
+            f"(kbo_tpu_torch.parallel.mesh) take"
+        )
 
 
 # -------------------------------------------------- data-parallel batches
@@ -606,3 +647,145 @@ def map_seq_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
                 except DevRefOverflow as o:
                     cap_d = _pow2_cap(o.need_d)
                     cap_g = _pow2_cap(o.need_g)
+
+
+# ------------------------------------------- prefix-sharded index placement
+#
+# A one-axis ``model`` mesh: shard i holds columns [i*m, (i+1)*m) of the
+# sorted key table (all-ones pad columns past its end, cap 0 for the 2-bit
+# keys), every shard joins the whole replicated query buffer against its
+# rows, and one pmax combines them. Exact: the global best row lives in one
+# shard and clamping commutes with max. On one card the shards run in turn;
+# the bytes a shard holds are the placement's point.
+
+
+def _model_shards(mesh: Mesh) -> int:
+    if mesh.axis_names != ("model",):
+        raise ValueError(
+            f"prefix-sharded placement needs a one-axis 'model' mesh, not "
+            f"axes {mesh.axis_names}"
+        )
+    return mesh.devices.size
+
+
+def _split_columns(mesh: Mesh, table: np.ndarray, fill):
+    """``table`` [..., n] split along its last axis into one block of
+    ceil(n / shards) columns per shard, padded with ``fill`` past n; shard
+    i's block on ``mesh.devices[i]`` (local shards only)."""
+    n_dev = _model_shards(mesh)
+    n = table.shape[-1]
+    m = -(-n // n_dev)
+
+    def block(i):
+        part = np.full(table.shape[:-1] + (m,), fill, dtype=table.dtype)
+        lo, hi = min(i * m, n), min((i + 1) * m, n)
+        part[..., : hi - lo] = table[..., lo:hi]
+        return torch.from_numpy(part).to(mesh.devices[i])
+
+    return map_shards(mesh, block, range(n_dev)), m
+
+
+def _replicated_buffer(mesh: Mesh, codes, k: int):
+    """The flat query buffer of a [Q, L] code batch (k-1 INVALID before
+    each row) on every local shard's device."""
+    if not isinstance(codes, torch.Tensor):
+        codes = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.uint8))
+    Q = codes.shape[0]
+    pad = torch.full((Q, k - 1), INVALID, dtype=torch.uint8,
+                     device=codes.device)
+    buf = torch.cat([pad, codes], dim=1).reshape(-1)
+    return replicate(mesh, buf)
+
+
+class Sharded3Index:
+    """The rows join's tables of a host index, prefix-sharded over a
+    one-axis ``model`` mesh: shard i holds ``keys3`` columns [i*m, (i+1)*m)
+    (all-ones int32 -1 columns past the table, so ``m * shards`` covers it)
+    and the GLOBAL adjacent-row LCS values of those rows, ``down[i] =
+    lcs[i]`` and ``up[i] = lcs[i + 1]`` (0 past the table), each on its
+    shard's device. No device holds the whole table: four shards on one
+    card are four tensors of m columns.
+
+    ``keys3`` / ``down`` / ``up`` are lists per shard; ``shard_cols`` is m,
+    ``shard_bytes`` the bytes one shard's tensors hold.
+    """
+
+    def __init__(self, index, mesh: Mesh):
+        _model_shards(mesh)
+        if index.keys3 is None:
+            raise ValueError("index built without join keys")
+        keys3 = np.ascontiguousarray(index.keys3, dtype=np.uint32).view(
+            np.int32)
+        n = keys3.shape[1]
+        lcs = np.asarray(index.lcs, dtype=np.uint8)[:n]
+        up = np.zeros(n, dtype=np.uint8)
+        up[: n - 1] = lcs[1:]
+        self.keys3, m = _split_columns(mesh, keys3, -1)
+        self.down, _ = _split_columns(mesh, lcs, 0)
+        self.up, _ = _split_columns(mesh, up, 0)
+        self.shard_cols = m
+        self.shard_bytes = m * (keys3.shape[0] * 4 + 2)
+        self.n_rows = int(index.n_rows)
+        self.k = int(index.k)
+
+
+def ms3_rows_sweep_index_sharded(sidx: Sharded3Index, codes, mesh: Mesh):
+    """(ms, uniq, rows) [Q, L] of a code batch (host array or tensor)
+    against the SHARDED key table: every shard's partial join
+    (kernels.ms.ms3_rows_partial_core, row offset i * m) over the
+    replicated query buffer, one pmax for each pack, the finish on the
+    first device. Equal to kernels.mapsweep.ms3_rows_sweep's outputs; rows
+    where uniq holds."""
+    _model_shards(mesh)
+    k = sidx.k
+    Q, L = codes.shape
+    m = sidx.shard_cols
+    parts = map_shards(
+        mesh,
+        lambda i, k3, dn, up, b: ms3_rows_partial_core(k3, dn, up, i * m, b,
+                                                       k),
+        range(mesh.devices.size), sidx.keys3, sidx.down, sidx.up,
+        _replicated_buffer(mesh, codes, k),
+    )
+    fp = pmax(mesh, [p[0] for p in parts])
+    bp = pmax(mesh, [p[1] for p in parts])
+    with device_scope(mesh.devices[0]):
+        ms, uniq, rows = ms3_rows_from_packed(fp, bp, sidx.n_rows, k)
+    stride = L + k - 1
+    return tuple(x.reshape(Q, stride)[:, k - 1 :] for x in (ms, uniq, rows))
+
+
+def matches_batch_index_sharded(index, code_list: list[np.ndarray],
+                                threshold: int,
+                                mesh: Mesh | None = None) -> list[np.ndarray]:
+    """Batched matches against a PREFIX-SHARDED 2-bit key table: ``keys2`` /
+    ``cap2`` split over the ``model`` shards (all-ones keys and cap 0 past
+    the table: such rows add nothing to the clamped-LCP scan), each shard's
+    ms2_core over the replicated buffer, one pmax, then derandomize and
+    translate once on the first device (kernels.postprocess.
+    derandomize_translate). Returns uint8 chars per query, equal to
+    pipeline.matches_batch's."""
+    mesh = mesh or make_mesh(axis="model")
+    _model_shards(mesh)
+    if index.keys2 is None:
+        raise ValueError("index built without join keys")
+    k = int(index.k)
+    codes, lengths = pad_batch(code_list)
+    Q, L = codes.shape
+    keys2, _ = _split_columns(
+        mesh, np.ascontiguousarray(index.keys2, dtype=np.uint32).view(
+            np.int32), -1)
+    cap2, _ = _split_columns(mesh, np.asarray(index.cap2, dtype=np.int32), 0)
+    parts = map_shards(
+        mesh,
+        lambda k2, c2, b: ms2_core(k2, c2, b, k).reshape(Q, L + k - 1)[
+            :, k - 1 :],
+        keys2, cap2, _replicated_buffer(mesh, codes, k),
+    )
+    ms = pmax(mesh, parts)
+    d0 = mesh.devices[0]
+    with device_scope(d0):
+        chars = derandomize_translate(
+            ms, k, int(threshold), torch.from_numpy(lengths).to(d0))
+    chars = chars.cpu().numpy()
+    return [chars[i, : c.size] for i, c in enumerate(code_list)]

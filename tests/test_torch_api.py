@@ -145,14 +145,15 @@ def test_find_batch_vs_kbo_tpu(seed, gap):
 def test_find_batch_guards():
     idx = kbo_tpu_torch.build([b"ACGTACGTAGGATTACA"], kbo_tpu_torch.BuildOpts(k=5))
     assert kbo_tpu_torch.find_batch([], idx, device="cpu") == []
-    # a data mesh (ROADMAP item 8a) takes no device= beside it; the model
-    # axis is item 8b
+    # a data mesh (ROADMAP item 8a) takes no device= beside it; a model
+    # mesh (item 8b.1) splits the key table, which find_batch refuses
     from kbo_tpu_torch.parallel.mesh import make_mesh
 
     with pytest.raises(ValueError, match="mesh"):
         kbo_tpu_torch.find_batch([b"ACGT"], idx,
                                  mesh=make_mesh(2, device="cpu"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8b"):
-        make_mesh(2, axis="model", device="cpu")
+    with pytest.raises(ValueError, match="matches_batch_index_sharded"):
+        kbo_tpu_torch.find_batch([b"ACGT"], idx, mesh=make_mesh(
+            2, axis="model", device="cpu"))
     with pytest.raises(TypeError, match="build_device"):
         kbo_tpu_torch.find_batch([b"ACGT"], object(), device="cpu")

@@ -847,3 +847,60 @@ def test_mesh_on_a_second_card(cuda):
     assert kbo_tpu_torch.find_batch(qs, idx, mesh=both) == got_find
     assert kbo_tpu_torch.map_batch([ref], idx, opts, mesh=both) == got_map
     assert got_map == kbo_tpu_torch.map_batch([ref], idx, opts, device=cuda)
+
+
+@pytest.mark.parametrize("k", [51, 127])
+def test_partial_rows_join_on_card(cuda, k):
+    """The prefix-sharded rows join (kernels.ms.ms3_rows_partial_core) on
+    the card equals its CPU twin pack for pack, at k = 127 (W = 13 key
+    rows, the largest under the rows join's k < 128) and at k = 51; the
+    four-shard sweep over one card equals the single-device sweep."""
+    from kbo_tpu_torch.kernels.mapsweep import ms3_rows_sweep
+    from kbo_tpu_torch.kernels.ms import ms3_rows_partial_core, w3_for_k
+    from kbo_tpu_torch.parallel import mesh as pmesh
+    from kbo_tpu_torch.pipeline import pad_batch
+
+    ref, query = _mesh_pair()
+    idx = kbo_tpu_torch.build([query], kbo_tpu_torch.BuildOpts(k=k))
+    codes, _ = pad_batch([encode_ascii(ref)], bucket=True)
+    mesh = pmesh.make_mesh(4, axis="model", device="cuda:0")
+    sidx = pmesh.Sharded3Index(idx, mesh)
+    assert sidx.keys3[0].shape[0] == w3_for_k(k)
+    buf = torch.cat([torch.full((1, k - 1), 255, dtype=torch.uint8),
+                     torch.from_numpy(codes)], dim=1).reshape(-1)
+    m = sidx.shard_cols
+    for i in range(4):
+        got = ms3_rows_partial_core(sidx.keys3[i], sidx.down[i], sidx.up[i],
+                                    i * m, buf.to(cuda), k)
+        want = ms3_rows_partial_core(sidx.keys3[i].cpu(), sidx.down[i].cpu(),
+                                     sidx.up[i].cpu(), i * m, buf, k)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    dev = device_index(idx, cuda)
+    single = ms3_rows_sweep(dev.keys3, dev.rows_packed,
+                            torch.from_numpy(codes).to(cuda), k)
+    got = pmesh.ms3_rows_sweep_index_sharded(sidx, codes, mesh)
+    assert torch.equal(got[0], single[0]) and torch.equal(got[1], single[1])
+    assert torch.equal(got[2][single[1]], single[2][single[1]])
+
+
+def test_map_e2e_equals_map_on_card(cuda):
+    """The single-core engine's map (native.map_e2e) equals map_ with the
+    default MapOpts() on the card over a 40 kbase pair, byte for byte."""
+    from kbo_tpu_torch import native
+    from kbo_tpu_torch.ops.derandomize import random_match_threshold
+
+    rng = np.random.default_rng(3)
+    ref = BASES[rng.integers(0, 4, 40_000)].tobytes()
+    q = bytearray(ref)
+    for p in range(700, 39_300, 1100):
+        q[p] = BASES[(BASES.tolist().index(q[p]) + 1) % 4]
+    del q[13_333:13_336]
+    q[26_666:26_666] = b"GGA"
+    bo = kbo_tpu_torch.BuildOpts(k=51, build_select=True)
+    idx = kbo_tpu_torch.build([bytes(q)], bo)
+    thr = random_match_threshold(51, idx.n_kmers, 4, 1e-7)
+    out, n_var = native.map_e2e(idx, ref, thr, 1e-7)
+    assert n_var > 0
+    assert kbo_tpu_torch.map_(ref, idx, kbo_tpu_torch.MapOpts(
+        sbwt_build_opts=bo), device=cuda) == out

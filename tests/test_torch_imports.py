@@ -107,3 +107,15 @@ def test_no_path_into_the_jax_package_or_csrc():
     for src in (_build.SRC_DIR, native.SRC_DIR):
         assert src.resolve().is_relative_to(port)
     assert set(p.name for p in native.SRC_DIR.iterdir()) >= set(native.SOURCES)
+
+
+def test_native_engine_builds_from_the_ports_sources():
+    """The single-core engine's two sources are the port's own copies under
+    native_src/, linked into the one host library with the pack and the
+    FASTA scanner."""
+    from kbo_tpu_torch import native
+
+    for name in ("kbo_cpu.cpp", "kbo_refine.cpp", "pack.cpp", "fastx.cpp"):
+        assert name in native.SOURCES
+        assert (native.SRC_DIR / name).is_file()
+    assert native.SRC_DIR == ROOT / "kbo_tpu_torch" / "native_src"

@@ -92,15 +92,37 @@ def test_make_mesh_rules():
 
 
 @pytest.mark.parametrize("build", [
-    lambda: tmesh.make_mesh(2, axis="model", device="cpu"),
-    lambda: tmesh.Mesh([torch.device("cpu")] * 2, ("model",)),
-    lambda: tmesh.Mesh([torch.device("cpu")] * 4, ("data", "model")),
-    lambda: tmesh.Mesh(np.array([torch.device("cpu")] * 4,
-                                dtype=object).reshape(2, 2), ("data",)),
+    (lambda: tmesh.make_mesh(2, axis="model", device="cpu"), "model"),
+    (lambda: tmesh.Mesh([torch.device("cpu")] * 2, ("model",)), "model"),
+    (lambda: tmesh.Mesh([torch.device("cpu")] * 4, ("data", "model")), "2-D"),
+    (lambda: tmesh.Mesh(np.array([torch.device("cpu")] * 4,
+                                 dtype=object).reshape(2, 2), ("data",)),
+     "2-D"),
 ])
 def test_model_and_2d_meshes_name_item_8b(build):
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        build()
+    """A one-axis 'model' mesh builds (the prefix-sharded placement,
+    tests/test_torch_mesh_model.py), and the API entry points, which shard
+    batches over 'data', refuse it naming the functions that take it; the
+    2-D meshes raise naming item 8b.2."""
+    make, kind = build
+    if kind == "2-D":
+        with pytest.raises(NotImplementedError, match="item 8b.2"):
+            make()
+        return
+    mesh = make()
+    assert mesh.axis_names == ("model",) and mesh.shape == {"model": 2}
+    assert mesh.devices.size == 2 and list(mesh.local_shards) == [0, 1]
+    rng = np.random.default_rng(2)
+    ref = BASES[rng.integers(0, 4, 1200)].tobytes()
+    t_idx = kbo_tpu_torch.build([ref], kbo_tpu_torch.BuildOpts(k=9))
+    calls = (
+        lambda: tapi.find_batch([ref[:100]], t_idx, mesh=mesh),
+        lambda: tapi.call(t_idx, ref, mesh=mesh),
+        lambda: tapi.map_batch([ref[:300]], t_idx, mesh=mesh),
+    )
+    for fn in calls:
+        with pytest.raises(ValueError, match="matches_batch_index_sharded"):
+            fn()
 
 
 def test_placement_and_collectives():
