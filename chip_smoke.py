@@ -135,7 +135,21 @@ Phases, each printed as it passes; any failure exits non-zero:
    single-device matches_batch, with launch counts; merge_path and both
    clamp_scan directions at a rows shard (W = 6, bits = 3) and a matches
    shard (W = 4, bits = 2), and derandomize_translate at the matches'
-   batch, against their plain versions;
+   batch, against their plain versions; then the map over the sharded
+   table: map_batch_index_sharded over the four model shards with
+   MapOpts() against phase 5's default map_ byte for byte, and
+   map_batch_2d_sharded over make_mesh((2, 4), axis=("data", "model"),
+   device="cuda:0") on the 8 contigs against the single-device map_batch
+   (when it returns None, a gap needing the host evaluator, the count is
+   printed and the fill_gaps=False run is compared instead; None with no
+   such gap fails), the 2 x 4 mesh holding four key shards, not eight,
+   and map_batch_2d_sharded over make_mesh((4, 2), ...) with MapOpts(),
+   two contigs a data row, its own refinement filling every gap, against
+   the same map_batch (None fails); launches, the left extension's rounds and lanes and the gaps sent to
+   the host; merge_path, both clamp_scan directions and
+   derandomize_translate at these calls' shapes (the index-sharded
+   variant join, a 2-D stage-1 shard, the 2-D variant join, a data row's
+   block) against their plain versions;
 7. times on the card (CUDA events or the host clock, medians of 7, of 3
    for gap filling's host numpy at full width; by
    stage, the refinement's stages and the per-index extension table
@@ -152,7 +166,11 @@ Phases, each printed as it passes; any failure exits non-zero:
    beside the default route, the over-budget sweep; each mesh call
    beside its single-device twin, the k=151 one once; native ms_stream
    beside query_ms_device and map_e2e beside map_; the model axis's two
-   calls beside their single-device twins), each with the card's
+   calls beside their single-device twins; the sharded maps (the 2-D one
+   over 2 x 4 and 4 x 2) beside theirs and the index-sharded map's stages: the placement, the rows
+   join, sharded gap scoring beside the chain table's, the search loop
+   over four shards and over one table, sharded variant resolution),
+   each with the card's
    name and power limit, then one torch.profiler run of each workload (and
    of one bitonic merge and one bitonic sort, by pass kind): device busy
    share and the kernels that take the time.
@@ -338,6 +356,7 @@ def main() -> int:
         derandomize_translate_plain,
         translate_core,
     )
+    from kbo_tpu_torch.kernels import refine as refine_mod
     from kbo_tpu_torch.kernels.refine import (
         build_ext_table_core,
         get_ext_table,
@@ -2175,6 +2194,154 @@ def main() -> int:
           f"; phase 6e {time.perf_counter() - t6e:.1f}s", flush=True)
     del rows_sh, match_sh
 
+    # the map over the sharded table: map_batch_index_sharded over the four
+    # model shards against phase 5's default map_ byte for byte (which
+    # phase 6d holds to native.map_e2e), then map_batch_2d_sharded over a
+    # 2 x 4 (data, model) mesh on the card against the single-device
+    # map_batch of the 8 contigs; launches (4 partial joins, then one
+    # variant join and one derandomize_translate per finish, per data row
+    # on the 2-D mesh), the search loop's rounds and lanes and the gaps sent
+    # to the host (run stats); then the kernels at these calls' shapes
+    t6e2 = time.perf_counter()
+    sharded_names = model_names + [
+        (mapsweep, "derandomize_translate"),
+        (pmesh, "sharded_score_gaps"), (pmesh, "sharded_resolve_variants"),
+        (refine_mod, "left_extend_device")]
+
+    def sharded_run(path, fn, rows, model=4):
+        """One sharded map: its output, stats and captured arguments, the
+        launches held to `rows` model groups each running `model` partial
+        joins and, per finish, 1 derandomize_translate and 1 variant
+        join."""
+        reset_counts()
+        reset_stats()
+        out, args = capture(fn, sharded_names)
+        torch.cuda.synchronize()
+        got = {name: f.launches for name, f in counters.items()}
+        tries = got["derandomize_translate"]
+        want = {**ONE_JOIN, "merge_path": model * rows + tries,
+                "clamp_scan": 2 * model * rows + 2 * tries,
+                "derandomize_translate": tries}
+        if got != want or not rows <= tries <= 3 * rows:
+            raise SystemExit(f"FAIL launches on the {path} path: {got}, "
+                             f"expected {want} with {rows} to {3 * rows} "
+                             f"finishes")
+        launches[path] = got
+        return out, get_stats().as_dict(), args
+
+    ish_out, ish_stats, ish_args = sharded_run(
+        "map_batch_index_sharded", lambda: pmesh.map_batch_index_sharded(
+            [ref], index, dopts(True), mm), 1)
+    if ish_out != [dmap_gpu[True]]:
+        raise SystemExit("FAIL map_batch_index_sharded over 4 model shards "
+                         "differs from the default map_")
+    mesh2d = pmesh.make_mesh((2, 4), axis=("data", "model"), device="cuda:0")
+    sidx2d = pmesh.Sharded3Index(index, mesh2d)
+    if sidx2d.group(0) is not sidx2d.group(1) or len({
+            id(t) for r in (0, 1) for t in sidx2d.tables(r)}) != 4:
+        raise SystemExit("FAIL the 2 x 4 mesh on one card holds other than "
+                         "four key shards")
+    del sidx2d
+    d2_opts, d2_twin = dopts(True), dbatch_gpu
+    d2_out, d2_stats, d2_args = sharded_run(
+        "map_batch_2d_sharded", lambda: pmesh.map_batch_2d_sharded(
+            contigs, index, d2_opts, mesh2d), 2)
+    d2_host = 0
+    if d2_out is None:
+        # a gap needs the exact host evaluator: kbo_tpu's returns None too;
+        # without gap filling no gap goes to the host
+        d2_host, d2_none = d2_stats.get("gaps_to_host", 0), d2_stats
+        if not d2_host:
+            raise SystemExit("FAIL map_batch_2d_sharded returned None with "
+                             "no gap for the host evaluator")
+        d2_opts = MapOpts(fill_gaps=False, sbwt_build_opts=BuildOpts(
+            k=K, build_select=True))
+        d2_twin = api.map_batch(contigs, index, d2_opts, device=cuda)
+        d2_out, d2_stats, d2_args = sharded_run(
+            "map_batch_2d_sharded", lambda: pmesh.map_batch_2d_sharded(
+                contigs, index, d2_opts, mesh2d), 2)
+    if d2_out != d2_twin:
+        raise SystemExit("FAIL map_batch_2d_sharded over 2 x 4 differs from "
+                         "the single-device map_batch")
+    # the 2-D map's own refinement at full size: over 4 x 2 a data row holds
+    # 2 of the 8 contigs, whose left extension fits cap_ext, so no gap goes
+    # to the host and MapOpts() maps them all, equal to the single-device
+    # map_batch
+    mesh42 = pmesh.make_mesh((4, 2), axis=("data", "model"), device="cuda:0")
+    d42_out, d42_stats, _ = sharded_run(
+        "map_batch_2d_sharded 4 x 2", lambda: pmesh.map_batch_2d_sharded(
+            contigs, index, dopts(True), mesh42), 4, 2)
+    if d42_out is None:
+        raise SystemExit(f"FAIL map_batch_2d_sharded over 4 x 2 returned "
+                         f"None ({d42_stats.get('gaps_to_host', 0)} gaps "
+                         f"for the host evaluator)")
+    if d42_out != dbatch_gpu:
+        raise SystemExit("FAIL map_batch_2d_sharded over 4 x 2 differs from "
+                         "the single-device map_batch")
+    if not d42_stats.get("gaps_filled") or not d42_stats.get(
+            "left_ext_rounds"):
+        raise SystemExit(f"FAIL map_batch_2d_sharded over 4 x 2 filled no "
+                         f"gap through the search loop: {d42_stats}")
+    # the kernels at the new per-shard shapes: a 2-D stage-1 shard (a data
+    # row's contigs against a quarter of the table), the index-sharded and
+    # the 2-D variant joins, derandomize_translate over a data row's block
+    ia, da = ish_args, d2_args
+    shard_shapes = {
+        "model map variant join": ia["merge_path"][4],
+        "2-D stage-1 shard": da["merge_path"][0],
+        "2-D variant join": da["merge_path"][8],
+    }
+    shard_scans = {
+        "model map variant join": ia["clamp_scan"][8],
+        "2-D stage-1 shard": da["clamp_scan"][0],
+        "2-D variant join": da["clamp_scan"][16],
+    }
+    shard_dt = {"model map postprocess": ia["derandomize_translate"][0],
+                "2-D data row": da["derandomize_translate"][0]}
+    for label, ops in shard_shapes.items():
+        check("merge_path", f"{label} W={ops[0].shape[0]} "
+              f"na={ops[0].shape[1]} nb={ops[2].shape[1]}",
+              merge_path(*ops), merge_path_plain(*ops))
+    for label, (sw, cp, bits) in shard_scans.items():
+        for rev in (False, True):
+            check("clamp_scan", f"{label} bits={bits} W={sw.shape[0]} "
+                  f"reverse={rev} M={sw.shape[1]}",
+                  [clamp_scan(sw, cp, bits, rev)],
+                  [clamp_scan_plain(sw, cp, bits, rev)])
+    for label, (dms, _k, _t, dtl) in shard_dt.items():
+        check_dt(f"{label} {dms.shape[0]}x{dms.shape[1]}", dms, dtl)
+    # the sharded refinement's stages and the search loop, timed in phase 7
+    # on the first finish's arguments
+    sg_args = ish_args["sharded_score_gaps"][0]
+    sv_args = ish_args["sharded_resolve_variants"][0]
+    le_args = ish_args["left_extend_device"][0]
+    print(f"model map: map_batch_index_sharded over {n} bases on 4 model "
+          f"shards equals the default map_ (launches "
+          f"{json.dumps(launches['map_batch_index_sharded'])}; left "
+          f"extension {ish_stats.get('left_ext_rounds', 0)} rounds over "
+          f"{ish_stats.get('left_ext_lanes', 0)} lanes; gaps to the host "
+          f"{ish_stats.get('gaps_to_host', 0)}; variants "
+          f"{ish_stats.get('variants_called')}, gaps filled "
+          f"{ish_stats.get('gaps_filled')}); map_batch_2d_sharded over 2 x 4 "
+          f"on cuda:0 "
+          + (f"returned None (gaps for the host evaluator: {d2_host}; its "
+             f"left extension {d2_none.get('left_ext_rounds', 0)} rounds over "
+             f"{d2_none.get('left_ext_lanes', 0)} lanes), and with "
+             f"fill_gaps=False " if d2_host else "")
+          + f"equals the single-device map_batch of the {len(contigs)} "
+          f"contigs (launches {json.dumps(launches['map_batch_2d_sharded'])}"
+          f"; left extension {d2_stats.get('left_ext_rounds', 0)} rounds "
+          f"over {d2_stats.get('left_ext_lanes', 0)} lanes); over 4 x 2 "
+          f"with MapOpts() it equals the single-device map_batch (launches "
+          f"{json.dumps(launches['map_batch_2d_sharded 4 x 2'])}; left "
+          f"extension {d42_stats.get('left_ext_rounds', 0)} rounds over "
+          f"{d42_stats.get('left_ext_lanes', 0)} lanes; gaps to the host "
+          f"{d42_stats.get('gaps_to_host', 0)}; variants "
+          f"{d42_stats.get('variants_called')}, gaps filled "
+          f"{d42_stats.get('gaps_filled')}); "
+          f"{time.perf_counter() - t6e2:.1f}s", flush=True)
+    del ish_out, d2_out, d42_out
+
     # ---- 7. times on the card
     def dev_ms(fn):
         fn()
@@ -2644,6 +2811,59 @@ def main() -> int:
         print(f"{tag} model {label} over 4 shards on cuda:0: "
               f"{host_ms(fn):.3f} ms; single-device {host_ms(twin):.3f} ms; "
               f"launches {json.dumps(launches[path])}", flush=True)
+    # the sharded maps beside their single-device twins (phase 7's
+    # medians above), then the index-sharded map's stages on the arguments
+    # its finish gave them (phase 6e) beside the single table's forms: gap
+    # scoring (the search loop over 4 shards against the chain table), the
+    # search loop alone (4 shards, one bucketed table), variant resolution
+    t_ish = host_ms(lambda: pmesh.map_batch_index_sharded(
+        [ref], index, dopts(True), mm))
+    t_2d = host_ms(lambda: pmesh.map_batch_2d_sharded(
+        contigs, index, d2_opts, mesh2d))
+    t_2d_twin = t_maps["MapOpts()", "batch"] if d2_host == 0 else host_ms(
+        lambda: api.map_batch(contigs, index, d2_opts, device=cuda))
+    t_42 = host_ms(lambda: pmesh.map_batch_2d_sharded(
+        contigs, index, dopts(True), mesh42))
+    print(f"{tag} map_batch_index_sharded over {n} bases, 4 model shards on "
+          f"cuda:0: {t_ish:.3f} ms; the default map_ "
+          f"{t_maps['MapOpts()', True]:.3f} ms; map_batch_2d_sharded over "
+          f"2 x 4 on cuda:0, {len(contigs)} contigs"
+          + (" with fill_gaps=False" if d2_host else "")
+          + f": {t_2d:.3f} ms; the single-device map_batch {t_2d_twin:.3f} ms"
+          f"; map_batch_2d_sharded over 4 x 2 with MapOpts(): {t_42:.3f} ms; "
+          f"the single-device map_batch {t_maps['MapOpts()', 'batch']:.3f} ms "
+          f"(host clock, medians of {REPS})", flush=True)
+    sg_rest = sg_args[1:]
+    lk_keys, lk_rest = le_args[0], le_args[1:4]
+    stage_times = {
+        "Sharded3Index(4 shards)": host_ms(
+            lambda: pmesh.Sharded3Index(index, mm)),
+        "rows join (4 partial joins + pmax + finish)": host_ms(
+            lambda: pmesh.ms3_rows_sweep_index_sharded(sidx, mcodes, mm)),
+        "sharded_score_gaps": host_ms(
+            lambda: pmesh.sharded_score_gaps(*sg_args)),
+        "score_gaps_core, one table + chain table": host_ms(
+            lambda: score_gaps_core(dev.keys3, *sg_rest[:6], *sg_rest[7:10],
+                                    get_ext_table(dev), sg_rest[6])),
+        "left_extend_device, 4 shards": host_ms(
+            lambda: refine_mod.left_extend_device(lk_keys, *lk_rest)),
+        "left_extend_device, one table (its bucket table built per call)":
+            host_ms(
+            lambda: refine_mod.left_extend_device(
+                dev.keys3, *lk_rest, refine_mod.bucket_table(dev.keys3))),
+        "sharded_resolve_variants": host_ms(
+            lambda: pmesh.sharded_resolve_variants(*sv_args,
+                                                   d_lo=threshold - 1)),
+    }
+    reset_stats()
+    refine_mod.left_extend_device(lk_keys, *lk_rest)
+    lstats = get_stats().as_dict()
+    print(f"{tag} the index-sharded map's stages (host clock, medians of "
+          f"{REPS}; the search loop {lstats.get('left_ext_rounds', 0)} rounds "
+          f"over {lstats.get('left_ext_lanes', 0)} lanes of "
+          f"{lk_rest[0].shape[0]}): "
+          + "; ".join(f"{name} {t:.3f} ms" for name, t in stage_times.items()),
+          flush=True)
 
     # each kernel alone at the find-core and map shapes, beside its plain
     # version, its byte bound and (where there is one) a library call: the
@@ -2809,7 +3029,8 @@ def main() -> int:
 
     # the reference helper's and the model axis's shapes (captured in
     # phases 6d and 6e)
-    for label, (ak, ap, bk, bp) in {**ref_shapes, **model_shapes}.items():
+    for label, (ak, ap, bk, bp) in {**ref_shapes, **model_shapes,
+                                    **shard_shapes}.items():
         W = ak.shape[0]
         M = ak.shape[1] + bk.shape[1]
         rows.setdefault(label, {})["merge_path"] = (
@@ -2819,7 +3040,8 @@ def main() -> int:
             dev_ms(lib_sort_of(torch.cat([ak, bk], 1))),
             f"M={M}, W={W}",
         )
-    for label, (sw, cp, bits) in {**ref_scans, **model_scans}.items():
+    for label, (sw, cp, bits) in {**ref_scans, **model_scans,
+                                  **shard_scans}.items():
         W, M = sw.shape
         rows.setdefault(label, {})["clamp_scan"] = (
             dev_ms(lambda: clamp_scan(sw, cp, bits, False)),
@@ -2828,7 +3050,7 @@ def main() -> int:
             None,
             f"M={M}, W={W}, bits={bits}, one direction",
         )
-    for label, (dms, dk, dthr, dtl) in model_dt.items():
+    for label, (dms, dk, dthr, dtl) in {**model_dt, **shard_dt}.items():
         Qd, Ld = dms.shape
         rows.setdefault(label, {})["derandomize_translate"] = (
             dev_ms(lambda: derandomize_translate(dms, dk, dthr, dtl)),
@@ -2990,6 +3212,9 @@ def main() -> int:
     breakdown(f"ms3_rows_sweep_index_sharded over {Lm} positions, 4 model "
               f"shards on cuda:0",
               lambda: pmesh.ms3_rows_sweep_index_sharded(sidx, mcodes, mm))
+    breakdown(f"map_batch_index_sharded over {n} bases, 4 model shards on "
+              f"cuda:0", lambda: pmesh.map_batch_index_sharded(
+                  [ref], index, dopts(True), mm))
 
     src = "kbo_tpu_torch/kernels/csrc/"
     main = "map_ MapOpts() format=True"
@@ -3003,7 +3228,10 @@ def main() -> int:
     # launches of its one call
     new_paths = [("reference ms3", "query_ms_device"),
                  ("model rows shard", "ms3_rows_sweep_index_sharded"),
-                 ("model matches shard", "matches_batch_index_sharded")]
+                 ("model matches shard", "matches_batch_index_sharded"),
+                 ("model map variant join", "map_batch_index_sharded"),
+                 ("2-D stage-1 shard", "map_batch_2d_sharded"),
+                 ("2-D variant join", "map_batch_2d_sharded")]
     # name: (source, TPU kernel, (shape, path whose launches it reports),
     #        other (shape, path) pairs)
     sources = {
@@ -3045,7 +3273,9 @@ def main() -> int:
                             ("over-budget", "over-budget sweep")]
             + [(label, path) for label, path in mesh_paths
                if label in mesh_dt]
-            + [("model matches shard", "matches_batch_index_sharded")]),
+            + [("model matches shard", "matches_batch_index_sharded"),
+               ("model map postprocess", "map_batch_index_sharded"),
+               ("2-D data row", "map_batch_2d_sharded")]),
         "bitonic_merge": ("bitonic.cu", "kbo_tpu/kernels/pallas_sort.py:178",
                           ("find-core", "ms2_core merge=bitonic"),
                           [("map", "ms3_rows_core merge=bitonic"),

@@ -1,5 +1,5 @@
 """Device-side map refinement: variant resolution and gap-fill scoring
-(PyTorch; counterpart of kbo_tpu/kernels/refine.py, single-device branches).
+(PyTorch; counterpart of kbo_tpu/kernels/refine.py).
 
 - :func:`resolve_variants_core` -- the variant pipeline per anchored MS drop
   (reference: src/variant_calling.rs:249-294): reference k-mers unpacked
@@ -11,10 +11,16 @@
   (src/variant_calling.rs:139-201) and add_variants patch emission
   (src/translate.rs:350-386).
 - :func:`score_gaps_core` -- gap-fill candidate scoring, left extension
-  from the per-index chain table (:func:`build_ext_table_core`) and
-  first-success commit (reference: src/gap_filling.rs:444-526); gaps whose
-  extension lanes do not fit the static budgets are flagged for the exact
-  host evaluator (refine/gap_filling.py).
+  from the per-index chain table (:func:`build_ext_table_core`) or by the
+  search loop (:func:`left_extend_device`) and first-success commit
+  (reference: src/gap_filling.rs:444-526); gaps whose extension lanes do
+  not fit the static budgets are flagged for the exact host evaluator
+  (refine/gap_filling.py).
+
+Over a key table prefix-sharded on a model group (:class:`ShardedKeys3`)
+only what reads the table runs per shard: the row unpack, the membership
+probes and the left extension's searches; the rest runs once, on the
+group's first device.
 - :func:`seq_keys3_tagged_core` -- sorted, contig-tagged 3-bit window keys
   of the [Q, L] reference batch: the join table for the reference-k-mer
   re-runs (the reference's build-an-index-inside-call(), src/lib.rs:553,
@@ -45,9 +51,11 @@ from kbo_tpu_torch.kernels.ms import (
     _neighbor_best,
     device_scope,
     pack_windows_3bit,
+    w3_for_k,
 )
 from kbo_tpu_torch.kernels.sort import _radix_sort, to_i32, u32
 from kbo_tpu_torch.ops.derandomize import log_rm_max_cdf
+from kbo_tpu_torch.utils.stats import get_stats
 
 _BIG32 = 2**31 - 1
 _OOB = 254  # never equals any reference byte
@@ -112,18 +120,275 @@ def seq_keys3_tagged_rc(codes, k: int):
     return seq_keys3_tagged_core(with_revcomp_rows(codes), k)
 
 
-def unpack_rows3(keys3, rows, k: int):
-    """[S] colex rows -> uint8 [S, k] chunk codes (0='$', 1..4=ACGT).
+class ShardedKeys3:
+    """A colex key table prefix-sharded over a model group (the placement of
+    kbo_tpu_torch.parallel.mesh.Sharded3Index): ``shards[i]`` int32 [W, m] is
+    columns [i*m, (i+1)*m) of the table on its own device, all-ones past the
+    table's end. The refinement functions below take it where they take
+    ``keys3``: the row unpack, the membership probes and the left extension
+    run per shard on the shard's device and meet on the first shard's
+    device (a sum of the shards' disjoint contributions, or an OR), where
+    everything that does not read the table runs once.
 
-    The colex key table IS the packed k-mer text (build pad chunk 0 == '$'):
-    the char at distance t from the window end rides word t // 10 at bits
-    27 - 3 (t % 10). Each key word is gathered once per row."""
-    r = torch.clamp(rows, min=0).to(torch.int64)
+    Each shard's bucket table (:func:`bucket_table`, 8 MiB) is built at the
+    first search and kept with the shard."""
+
+    def __init__(self, shards, m: int):
+        self.shards = list(shards)
+        self.m = int(m)
+        self.device = self.shards[0].device
+        self._tables = None
+
+    def search_tables(self):
+        """(bucket table, search steps) per shard, on the shard's device."""
+        if self._tables is None:
+            self._tables = []
+            for s in self.shards:
+                with device_scope(s.device):
+                    tbl = bucket_table(s)
+                    self._tables.append((tbl, _bucket_steps(tbl, s.shape[1])))
+        return self._tables
+
+
+def _unpack(keys3, r, k: int):
     words = keys3[:, r]  # [W, S]
     t = torch.arange(k - 1, -1, -1, device=keys3.device)  # char i: t = k-1-i
     sel = words[t // 10]  # [k, S]
     shift = (27 - 3 * (t % 10)).to(torch.int32)[:, None]
     return ((sel >> shift) & 7).to(torch.uint8).T
+
+
+def unpack_rows3(keys3, rows, k: int):
+    """[S] colex rows -> uint8 [S, k] chunk codes (0='$', 1..4=ACGT).
+
+    The colex key table IS the packed k-mer text (build pad chunk 0 == '$'):
+    the char at distance t from the window end rides word t // 10 at bits
+    27 - 3 (t % 10). Each key word is gathered once per row.
+
+    Over a :class:`ShardedKeys3` the rows are GLOBAL: each shard gives its
+    in-range rows and zeros elsewhere, and the sum lands on the first
+    device. A row < 0 is then all zeros (no shard owns it), where the
+    single table gives row 0's k-mer; only what the callers compute from
+    them agrees."""
+    if not isinstance(keys3, ShardedKeys3):
+        return _unpack(keys3, torch.clamp(rows, min=0).to(torch.int64), k)
+    m = keys3.m
+    out = None
+    for i, shard in enumerate(keys3.shards):
+        with device_scope(shard.device):
+            local = rows.to(shard.device).to(torch.int64) - i * m
+            part = _unpack(shard, torch.clamp(local, 0, m - 1), k)
+            part = torch.where(((local >= 0) & (local < m))[:, None], part, 0)
+        part = part.to(keys3.device)
+        out = part if out is None else out + part
+    return out
+
+
+# ------------------------------------------------------------ the search loop
+#
+# Membership probes and the left extension over the colex key table (kbo_tpu
+# runs them as XLA gathers and a while_loop, no Pallas kernel). Key words
+# are int32 bit patterns whose pad and sentinel columns are all ones (-1):
+# the lower bound compares them as unsigned (sign bit flipped), so those
+# columns sort after every probe, and the bucket table widens word 0 before
+# its shift.
+
+_BUCKET_BITS = 21
+_SIGN = -(2**31)
+
+
+def _pack_codes_matrix(cm, k: int):
+    """[N, k] chunk codes (0..7; char 0 first) -> int32 [W, N] words in the
+    colex window-key layout (the char at distance t from the END rides word
+    t // 10 at bits 27 - 3 (t % 10)), comparable with keys3 columns."""
+    N = cm.shape[0]
+    W = w3_for_k(k)
+    t = torch.arange(k, device=cm.device)
+    fields = cm[:, k - 1 - t].to(torch.int64) << (27 - 3 * (t % 10))
+    fields = torch.cat([fields, fields.new_zeros((N, W * 10 - k))], dim=1)
+    # the fields of one word are disjoint bits: their sum is their OR
+    return fields.reshape(N, W, 10).sum(dim=2).T.to(torch.int32)
+
+
+def bucket_table(keys3):
+    """int32 [2^21] prefix-bucket starts over the colex rows: ``tbl[p]`` =
+    the first row whose word-0 top 21 bits are >= p (n when none).
+
+    Bucketing by the key's high bits is order-consistent, so the lower
+    bound of a probe lies in [tbl[top], tbl[top + 1]]: the binary search
+    starts about 2^21-fold narrower. One scatter-min over the rows, then a
+    backward doubling min for the empty buckets."""
+    n = keys3.shape[1]
+    size = 1 << _BUCKET_BITS
+    tops = u32(keys3[0]) >> (32 - _BUCKET_BITS)
+    tbl = torch.full((size,), n, dtype=torch.int32, device=keys3.device)
+    tbl.scatter_reduce_(0, tops,
+                        torch.arange(n, dtype=torch.int32, device=keys3.device),
+                        "amin")
+    s = 1
+    while s < size:
+        tbl = torch.minimum(tbl, torch.cat([tbl[s:], tbl.new_full((s,), n)]))
+        s <<= 1
+    return tbl
+
+
+def _bucket_steps(tbl, n: int) -> int:
+    """Halvings that close the widest bucket of ``tbl`` (one host sync)."""
+    ends = torch.cat([tbl[1:], tbl.new_full((1,), n)])
+    return int((ends - tbl).max()).bit_length()
+
+
+def _lower_bound_device(keys3, probe_words, tbl=None, steps=None):
+    """Vectorized lower bound of packed probes (int32 [W, N]) in the colex
+    rows of ``keys3`` (int32 [W, n]), compared as unsigned words; int32 [N].
+
+    A fixed number of halvings, with no host sync: bit_length(n) over the
+    whole table, or with a :func:`bucket_table` the halvings of its widest
+    bucket (``steps``; computed here when not given). Converged lanes do not
+    move, so the extra halvings change nothing."""
+    n = keys3.shape[1]
+    N = probe_words.shape[1]
+    dev = keys3.device
+    pw = probe_words ^ _SIGN
+    if tbl is None:
+        lo = torch.zeros(N, dtype=torch.int64, device=dev)
+        hi = torch.full((N,), n, dtype=torch.int64, device=dev)
+        steps = n.bit_length()
+    else:
+        size = 1 << _BUCKET_BITS
+        top = u32(probe_words[0]) >> (32 - _BUCKET_BITS)
+        lo = tbl[top].to(torch.int64)
+        hi = torch.where(top + 1 < size, tbl[torch.clamp(top + 1, max=size - 1)],
+                         n).to(torch.int64)
+        if steps is None:
+            steps = _bucket_steps(tbl, n)
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        tw = keys3[:, torch.clamp(mid, max=n - 1)] ^ _SIGN  # [W, N]
+        ne = tw != pw
+        first = torch.argmax(ne.to(torch.int8), dim=0, keepdim=True)
+        # the first differing word decides; an equal key is not less
+        less = ne.any(dim=0) & (tw.gather(0, first) < pw.gather(0, first))[0]
+        act = lo < hi
+        lo = torch.where(act & less, mid + 1, lo)
+        hi = torch.where(act & ~less, mid, hi)
+    return lo.to(torch.int32)
+
+
+def _searches(keys3, tbl):
+    """(table, (bucket table, steps) or None) per shard of ``keys3``."""
+    if isinstance(keys3, ShardedKeys3):
+        return list(zip(keys3.shards, keys3.search_tables()))
+    if tbl is None:
+        return [(keys3, None)]
+    return [(keys3, (tbl, _bucket_steps(tbl, keys3.shape[1])))]
+
+
+def _or_shards(searches, probe_words, fn):
+    """``fn(table, search table, probes)`` per shard on its device, ORed on
+    the probes' device (a row lives in at most one shard)."""
+    out = None
+    for keys, tab in searches:
+        with device_scope(keys.device):
+            part = fn(keys, tab, probe_words.to(keys.device))
+        part = part.to(probe_words.device)
+        out = part if out is None else out | part
+    return out
+
+
+def _member(keys, tab, pw):
+    n = keys.shape[1]
+    lo = _lower_bound_device(keys, pw, *(tab or ()))
+    at = torch.clamp(lo, max=n - 1).to(torch.int64)
+    return (lo < n) & (keys[:, at] == pw).all(dim=0)
+
+
+def _member_rows_device(keys3, probe_words, tbl=None):
+    """Membership of full-length probes (int32 [W, N]) in the colex rows:
+    rows are distinct length-k strings, so membership is equality at the
+    lower bound. Over a :class:`ShardedKeys3` each shard searches its own
+    range with its own bucket table and membership is the OR; bool [N]."""
+    return _or_shards(_searches(keys3, tbl), probe_words, _member)
+
+
+def _extend_members(searches, prefix, k: int):
+    """Membership of the four prepend-variants b + prefix (b = A..T) with
+    one lower bound per lane: colex order compares the shared (k-1)-suffix
+    first, so the variants that exist are consecutive rows sorted by the
+    prepended char, and the A-variant's lower bound plus the next three rows
+    covers all four. Variant b's key differs from the A-variant's by
+    (b - 1) << shift in one word. Over shards, a suffix range that spans a
+    shard boundary continues at the next shard's own lower bound, and the
+    OR recovers it. Returns bool [4, E]."""
+    E = prefix.shape[0]
+    cm1 = torch.cat([prefix.new_ones((E, 1)), prefix], dim=1)
+    pw = _pack_codes_matrix(cm1, k)
+    wb, jb = divmod(k - 1, 10)
+    bump = torch.zeros((4, pw.shape[0], 1), dtype=torch.int32,
+                       device=pw.device)
+    bump[:, wb, 0] = torch.arange(4, dtype=torch.int32,
+                                  device=pw.device) << (27 - 3 * jb)
+    want = pw[None] + bump  # [4 (b), W, E]
+
+    def members(keys, tab, want_s):
+        n = keys.shape[1]
+        lo = _lower_bound_device(keys, want_s[0], *(tab or ())).to(torch.int64)
+        cand = lo[None] + torch.arange(4, device=keys.device)[:, None]  # [4, E]
+        rows = keys[:, torch.clamp(cand, max=n - 1)]  # [W, 4 (j), E]
+        eq = (rows[None] == want_s[:, :, None]).all(dim=1)  # [4 (b), 4 (j), E]
+        return (eq & (cand < n)[None]).any(dim=1)
+
+    return _or_shards(searches, want, members)
+
+
+def _extend_members_device(keys3, prefix, k: int, tbl=None):
+    """:func:`_extend_members` over ``keys3`` (a table, with or without a
+    :func:`bucket_table`, or a :class:`ShardedKeys3`): bool [4, E]."""
+    return _extend_members(_searches(keys3, tbl), prefix, k)
+
+
+def left_extend_device(keys3, kmers, budgets, k: int, tbl=None):
+    """Batched left extension (reference: src/gap_filling.rs:205-232): per
+    round, prepend each of the four bases to the lane's current
+    (k-1)-prefix and extend iff EXACTLY ONE base gives a row (full-length
+    probes: nonempty == singleton == membership).
+
+    kmers: uint8 [E, k] chunk codes; budgets: int32 [E] (<= k). Rounds run
+    until no lane is active, one host sync each (at most k rounds), and
+    search only the active lanes; the rounds and the lanes that start
+    active go to the run's stats (``left_ext_rounds``, ``left_ext_lanes``).
+    Returns (exts uint8 [E, 2k] chunk codes, LEFT-aligned: char i of the
+    extended string; ext_len int32 [E] = k + n_ext)."""
+    E = kmers.shape[0]
+    dev = kmers.device
+    searches = _searches(keys3, tbl)
+    prefix = kmers[:, : k - 1].clone()
+    pre = torch.zeros((E, k), dtype=torch.uint8, device=dev)
+    n_ext = torch.zeros(E, dtype=torch.int32, device=dev)
+    idx = (budgets > 0).nonzero()[:, 0]  # the active lanes
+    stats = get_stats()
+    stats.add("left_ext_lanes", idx.numel())
+    while idx.numel():
+        stats.add("left_ext_rounds")
+        member = _extend_members(searches, prefix[idx], k)  # [4, A]
+        ok = member.sum(dim=0) == 1
+        newchar = (torch.argmax(member.to(torch.int8), dim=0) + 1).to(
+            torch.uint8)
+        slot = n_ext[idx].to(torch.int64)  # < k on an active lane
+        pre[idx, slot] = torch.where(ok, newchar, pre[idx, slot])
+        prefix[idx] = torch.where(
+            ok[:, None], torch.cat([newchar[:, None], prefix[idx, :-1]], dim=1),
+            prefix[idx])
+        n_ext[idx] += ok.to(torch.int32)
+        more = ok & (n_ext[idx] < budgets[idx]) & (n_ext[idx] < k)
+        idx = idx[more.nonzero()[:, 0]]  # the round's one host sync
+    # char i = pre[n_ext-1-i] for i < n_ext, else kmer[i - n_ext]
+    i2k = torch.arange(2 * k, dtype=torch.int32, device=dev)[None, :]
+    pre_idx = torch.clamp(n_ext[:, None] - 1 - i2k, 0, k - 1).to(torch.int64)
+    km_idx = torch.clamp(i2k - n_ext[:, None], 0, k - 1).to(torch.int64)
+    exts = torch.where(i2k < n_ext[:, None], torch.gather(pre, 1, pre_idx),
+                       torch.gather(kmers, 1, km_idx))
+    return exts, k + n_ext
 
 
 def _leading_run(eq):
@@ -500,13 +765,15 @@ def score_gaps_core(
     k: int,
     cap_ge: int,
     cap_ext: int,
-    ext_tab,
+    ext_tab=None,
     bound=None,
 ):
     """Gap-fill candidate scoring + first-success commit on the device.
 
     Follows refine/gap_filling._score_candidates phases C-E exactly, left
-    extension (:func:`ext_from_table` over ``ext_tab``) and the probabilistic
+    extension (:func:`ext_from_table` over ``ext_tab``; without one, the
+    search loop :func:`left_extend_device` over a :func:`bucket_table`, the
+    one form a :class:`ShardedKeys3` takes) and the probabilistic
     acceptance for gaps a single k-mer cannot span (``bound`` =
     log1p(-max_error_prob); reference: src/gap_filling.rs:476-509)
     included; the first-success scan is position-descending across both
@@ -600,8 +867,12 @@ def score_gaps_core(
     lane_row = rows[fci]
     lane_km = unpack_rows3(keys3, lane_row, k)
     lane_bud = torch.where(lane_valid, bud[fci], 0)
-    exts, ext_len = ext_from_table(ext_tab[0], ext_tab[1], lane_row, lane_km,
-                                   lane_bud, k)
+    if ext_tab is not None:
+        exts, ext_len = ext_from_table(ext_tab[0], ext_tab[1], lane_row,
+                                       lane_km, lane_bud, k)
+    else:
+        tbl = None if isinstance(keys3, ShardedKeys3) else bucket_table(keys3)
+        exts, ext_len = left_extend_device(keys3, lane_km, lane_bud, k, tbl)
     # leading match of the extended string vs the reference from the gap's
     # left flank; the reference window is gathered once per gap
     i2k = torch.arange(2 * k, dtype=i32, device=dev)

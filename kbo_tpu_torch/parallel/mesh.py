@@ -1,5 +1,5 @@
 """Multi-device execution over a mesh of torch devices (counterpart of
-kbo_tpu/parallel/mesh.py, its ``data`` axis).
+kbo_tpu/parallel/mesh.py).
 
 kbo_tpu's mesh is single-controller: one process drives every device
 through ``jax.shard_map``. So is this one: a :class:`Mesh` is a list of
@@ -26,14 +26,17 @@ of every process's local devices; each process runs its own shards and
 ``gather_to_host`` fills in the rest. The collectives above need every
 shard in one process and raise otherwise.
 
-A one-axis ``model`` mesh splits the KEY TABLE instead (prefix-sharded
-placement, for an index larger than one card's memory): shard i holds a
+A ``model`` axis splits the KEY TABLE instead (prefix-sharded placement,
+for an index larger than one card's memory): model shard j holds a
 contiguous colex range of the sorted join keys (:class:`Sharded3Index`, the
 2-bit keys in :func:`matches_batch_index_sharded`), the queries are
-replicated, and the per-shard partial joins meet in one :func:`pmax`. No
-API entry point takes it (in kbo_tpu neither); the refinement over the
-sharded table and the 2-D ``("data", "model")`` mesh are ROADMAP Queue 1
-item 8b.2.
+replicated, and the per-shard partial joins meet in one :func:`pmax`; the
+map's refinement reads the table through kernels.refine.ShardedKeys3
+(:func:`map_batch_index_sharded`). The 2-D ``("data", "model")`` mesh does
+both at once (:func:`map_batch_2d_sharded`): each row of its device grid
+is a model group mapping its own block of contigs. No API entry point
+takes a mesh with a ``model`` axis (in kbo_tpu neither): these functions
+are called directly.
 """
 
 from __future__ import annotations
@@ -62,7 +65,10 @@ from kbo_tpu_torch.kernels.postprocess import (
     rle_segments_global_core,
 )
 from kbo_tpu_torch.kernels.refine import (
+    ShardedKeys3,
     get_ext_table,
+    max_tag,
+    prob_bound,
     resolve_variants_core,
     score_gaps_core,
     seq_keys3_tagged_core,
@@ -82,29 +88,32 @@ from kbo_tpu_torch.pipeline import (
 from kbo_tpu_torch.utils.stats import stage
 
 _BIG32 = 2**31 - 1
-_ITEM_8B2 = "ROADMAP Queue 1 item 8b.2"
-_AXES = ("data", "model")
+_AXES = (("data",), ("model",), ("data", "model"))
 
 
 class Mesh:
     """Devices along named axes: the one-axis ``("data",)`` or
-    ``("model",)`` mesh.
+    ``("model",)`` mesh, or the 2-D ``("data", "model")`` mesh.
 
-    ``devices`` is a numpy object array of ``torch.device`` (a device may
-    repeat), ``axis_names`` the axis names, ``shape`` {axis: size}, as on a
-    ``jax.sharding.Mesh``. In a multi-process run the devices are every
-    process's, in rank order, and ``local_shards`` are this process's.
+    ``devices`` is a numpy object array of ``torch.device`` with one
+    dimension per axis (a device may repeat), ``axis_names`` the axis
+    names, ``shape`` {axis: size}, as on a ``jax.sharding.Mesh``. In a
+    multi-process run the devices are every process's, in rank order, and
+    ``local_shards`` are this process's (flat indices, row-major).
     """
 
     def __init__(self, devices, axis_names=("data",), process_count: int = 1,
                  process_index: int = 0):
         devices = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
-        if len(axis_names) != 1 or axis_names[0] not in _AXES \
-                or devices.ndim != 1:
-            raise NotImplementedError(
-                f"a mesh with axes {axis_names}: one 'data' or 'model' axis; "
-                f"the 2-D mesh is {_ITEM_8B2}"
+        if axis_names not in _AXES:
+            raise ValueError(
+                f"a mesh over axes {axis_names}: the axes are one of {_AXES}"
+            )
+        if devices.ndim != len(axis_names):
+            raise ValueError(
+                f"a mesh over axes {axis_names} takes a {len(axis_names)}-D "
+                f"device array, not a {devices.ndim}-D one"
             )
         if devices.size == 0 or devices.size % process_count:
             raise ValueError(
@@ -113,29 +122,36 @@ class Mesh:
             )
         self.devices = devices
         self.axis_names = axis_names
-        self.shape = {axis_names[0]: int(devices.size)}
+        self.shape = dict(zip(axis_names, map(int, devices.shape)))
         self.process_count = process_count
         per = devices.size // process_count
         self.local_shards = range(process_index * per,
                                   (process_index + 1) * per)
 
 
-def make_mesh(n_devices: int | None = None, axis: str = "data",
-              device=None) -> Mesh:
-    """A one-axis mesh over ``axis``, ``"data"`` (the batch splits) or
-    ``"model"`` (the key table splits).
+def make_mesh(n_devices=None, axis="data", device=None) -> Mesh:
+    """A mesh over ``axis``: ``"data"`` (the batch splits), ``"model"`` (the
+    key table splits), or ``("data", "model")`` with ``n_devices`` a pair of
+    sizes (both at once: ``make_mesh((2, 4), axis=("data", "model"),
+    device="cuda:0")``).
 
-    ``device`` None or ``"cuda"``: the first ``n_devices`` visible cards
-    (all of them by default); raises when there are fewer, or none. A single
-    named device (``"cuda:0"``, ``"cpu"``): ``n_devices`` shards on that
-    one device (required). In a multi-process run these are this process's
-    devices, and the mesh holds every process's.
+    ``device`` None or ``"cuda"``: the first visible cards, as many as the
+    mesh has shards (all of them by default for one axis); raises when
+    there are fewer, or none. A single named device (``"cuda:0"``,
+    ``"cpu"``): every shard on that one device (``n_devices`` required). In
+    a multi-process run these are this process's devices, and the mesh
+    holds every process's, in rank order along the first axis.
     """
-    if axis not in _AXES:
-        raise NotImplementedError(
-            f"a mesh over the {axis!r} axis: one 'data' or 'model' axis; the "
-            f"2-D mesh is {_ITEM_8B2}"
-        )
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    if axes not in _AXES:
+        raise ValueError(f"a mesh over axes {axes}: the axes are one of "
+                         f"{_AXES}")
+    if len(axes) == 2 and not (isinstance(n_devices, (tuple, list))
+                               and len(n_devices) == 2):
+        raise ValueError(f"make_mesh over {axes} needs n_devices=(data, "
+                         f"model) sizes, not {n_devices}")
+    grid = None if len(axes) == 1 else tuple(int(x) for x in n_devices)
+    n_devices = n_devices if grid is None else grid[0] * grid[1]
     dev = None if device is None else torch.device(device)
     if dev is None or (dev.type == "cuda" and dev.index is None):
         if not torch.cuda.is_available():
@@ -155,14 +171,18 @@ def make_mesh(n_devices: int | None = None, axis: str = "data",
             )
         local = [dev] * n_devices
     n_proc = distributed.process_count()
-    if n_proc == 1:
-        return Mesh(local, (axis,))
-    names = [None] * n_proc
-    dist.all_gather_object(names, [str(d) for d in local])
-    if len({len(part) for part in names}) != 1:
-        raise ValueError("make_mesh: every process must bring as many devices")
-    return Mesh([torch.device(s) for part in names for s in part], (axis,),
-                n_proc, distributed.process_index())
+    if n_proc > 1:
+        names = [None] * n_proc
+        dist.all_gather_object(names, [str(d) for d in local])
+        if len({len(part) for part in names}) != 1:
+            raise ValueError(
+                "make_mesh: every process must bring as many devices")
+        local = [torch.device(s) for part in names for s in part]
+    devices = np.empty(len(local), dtype=object)
+    devices[:] = local
+    if grid is not None:
+        devices = devices.reshape(n_proc * grid[0], grid[1])
+    return Mesh(devices, axes, n_proc, distributed.process_index())
 
 
 # ------------------------------------------------------------- placement
@@ -280,11 +300,11 @@ def psum(mesh: Mesh, parts) -> torch.Tensor:
     return out
 
 
-def pmax(mesh: Mesh, parts) -> torch.Tensor:
-    """The elementwise maximum of the shards' tensors, on the first
-    device."""
+def pmax(mesh: Mesh, parts, dst=None) -> torch.Tensor:
+    """The elementwise maximum of the shards' tensors, on the first device
+    (or on ``dst``: a model group's first device)."""
     _one_process(mesh, "pmax")
-    dst = mesh.devices[0]
+    dst = mesh.devices.flat[0] if dst is None else dst
     out = parts[0].to(dst)
     for p in parts[1:]:
         out = torch.maximum(out, p.to(dst))
@@ -292,14 +312,15 @@ def pmax(mesh: Mesh, parts) -> torch.Tensor:
 
 
 def require_data_axis(mesh: Mesh, what: str) -> None:
-    """Raise unless ``mesh`` shards over ``data``: the entry points split
-    batches, never the key table."""
-    if "data" not in mesh.axis_names:
+    """Raise unless ``mesh`` is a one-axis ``data`` mesh: the entry points
+    split batches, never the key table."""
+    if mesh.axis_names != ("data",):
         raise ValueError(
-            f"{what} shards its batch over a 'data' mesh, not axes "
-            f"{mesh.axis_names}: a 'model' mesh splits the key table, which "
-            f"matches_batch_index_sharded and ms3_rows_sweep_index_sharded "
-            f"(kbo_tpu_torch.parallel.mesh) take"
+            f"{what} shards its batch over a one-axis 'data' mesh, not axes "
+            f"{mesh.axis_names}: a mesh with a 'model' axis splits the key "
+            f"table, which matches_batch_index_sharded, "
+            f"ms3_rows_sweep_index_sharded, map_batch_index_sharded and "
+            f"map_batch_2d_sharded (kbo_tpu_torch.parallel.mesh) take"
         )
 
 
@@ -314,6 +335,14 @@ def pad_rows(codes: np.ndarray, lengths: np.ndarray, n: int):
         codes = np.pad(codes, ((0, pad), (0, 0)), constant_values=INVALID)
         lengths = np.pad(lengths, (0, pad))
     return codes, lengths
+
+
+def ref_matrix(ref_seqs, Q: int, L: int) -> np.ndarray:
+    """The raw reference bytes as a padded [Q, L] host matrix."""
+    ref_mat = np.zeros((Q, L), dtype=np.uint8)
+    for q, r in enumerate(ref_seqs):
+        ref_mat[q, : len(r)] = np.frombuffer(bytes(r), dtype=np.uint8)
+    return ref_mat
 
 
 def _matches_parts(mesh, index, codes_p, lengths_p, threshold: int):
@@ -616,9 +645,7 @@ def map_seq_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
             seg = codes[:, c0 : min(L, lo + chunk)]
             off = (k - 1) - (lo - c0)
             cc[s, :, off : off + seg.shape[1]] = seg
-    ref_mat = np.zeros((Q, L), dtype=np.uint8)
-    for q, r in enumerate(ref_seqs):
-        ref_mat[q, : len(r)] = np.frombuffer(bytes(r), dtype=np.uint8)
+    ref_mat = ref_matrix(ref_seqs, Q, L)
 
     holder = _SeqShardedDev(index_replicas(query_sbwt, mesh), k, mesh,
                             [c[0] for c in shard_rows(mesh, cc)])
@@ -651,12 +678,19 @@ def map_seq_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
 
 # ------------------------------------------- prefix-sharded index placement
 #
-# A one-axis ``model`` mesh: shard i holds columns [i*m, (i+1)*m) of the
-# sorted key table (all-ones pad columns past its end, cap 0 for the 2-bit
-# keys), every shard joins the whole replicated query buffer against its
-# rows, and one pmax combines them. Exact: the global best row lives in one
-# shard and clamping commutes with max. On one card the shards run in turn;
-# the bytes a shard holds are the placement's point.
+# A mesh with a ``model`` axis: model shard j holds columns [j*m, (j+1)*m)
+# of the sorted key table (all-ones pad columns past its end, cap 0 for the
+# 2-bit keys), every shard joins the whole replicated query buffer against
+# its rows, and one pmax combines them. Exact: the global best row lives in
+# one shard and clamping commutes with max. On one card the shards run in
+# turn; the bytes a shard holds are the placement's point.
+#
+# The map's refinement reads the table at three places: the k-mer unpack,
+# the membership probes and gap filling's left extension. Those run per
+# shard (kernels.refine.ShardedKeys3, the search loop: the per-index chain
+# table needs the whole table); everything else runs once, on the first
+# device of the model group. On the 2-D ``("data", "model")`` mesh each row
+# of the device grid is a model group with its own block of contigs.
 
 
 def _model_shards(mesh: Mesh) -> int:
@@ -668,21 +702,29 @@ def _model_shards(mesh: Mesh) -> int:
     return mesh.devices.size
 
 
-def _split_columns(mesh: Mesh, table: np.ndarray, fill):
-    """``table`` [..., n] split along its last axis into one block of
-    ceil(n / shards) columns per shard, padded with ``fill`` past n; shard
-    i's block on ``mesh.devices[i]`` (local shards only)."""
-    n_dev = _model_shards(mesh)
+def _column_blocks(table: np.ndarray, n_blocks: int, fill):
+    """``table`` [..., n] split along its last axis into n_blocks host blocks
+    of m = ceil(n / n_blocks) columns, padded with ``fill`` past n."""
     n = table.shape[-1]
-    m = -(-n // n_dev)
-
-    def block(i):
+    m = -(-n // n_blocks)
+    blocks = []
+    for j in range(n_blocks):
         part = np.full(table.shape[:-1] + (m,), fill, dtype=table.dtype)
-        lo, hi = min(i * m, n), min((i + 1) * m, n)
+        lo, hi = min(j * m, n), min((j + 1) * m, n)
         part[..., : hi - lo] = table[..., lo:hi]
-        return torch.from_numpy(part).to(mesh.devices[i])
+        blocks.append(part)
+    return blocks, m
 
-    return map_shards(mesh, block, range(n_dev)), m
+
+def _split_columns(mesh: Mesh, table: np.ndarray, fill):
+    """``table`` split into one column block per shard of a one-axis
+    ``model`` mesh (:func:`_column_blocks`), shard i's block on
+    ``mesh.devices[i]`` (local shards only)."""
+    blocks, m = _column_blocks(table, _model_shards(mesh), fill)
+    return map_shards(
+        mesh, lambda i: torch.from_numpy(blocks[i]).to(mesh.devices[i]),
+        range(len(blocks)),
+    ), m
 
 
 def _replicated_buffer(mesh: Mesh, codes, k: int):
@@ -698,20 +740,32 @@ def _replicated_buffer(mesh: Mesh, codes, k: int):
 
 
 class Sharded3Index:
-    """The rows join's tables of a host index, prefix-sharded over a
-    one-axis ``model`` mesh: shard i holds ``keys3`` columns [i*m, (i+1)*m)
+    """The rows join's tables of a host index, prefix-sharded over the
+    ``model`` axis of a one-axis ``model`` mesh or a 2-D ``("data",
+    "model")`` mesh: model shard j holds ``keys3`` columns [j*m, (j+1)*m)
     (all-ones int32 -1 columns past the table, so ``m * shards`` covers it)
-    and the GLOBAL adjacent-row LCS values of those rows, ``down[i] =
-    lcs[i]`` and ``up[i] = lcs[i + 1]`` (0 past the table), each on its
-    shard's device. No device holds the whole table: four shards on one
-    card are four tensors of m columns.
+    and the GLOBAL adjacent-row LCS values of those rows, ``down[j] =
+    lcs[j]`` and ``up[j] = lcs[j + 1]`` (0 past the table). No device holds
+    the whole table: four shards on one card are four tensors of m columns.
 
-    ``keys3`` / ``down`` / ``up`` are lists per shard; ``shard_cols`` is m,
-    ``shard_bytes`` the bytes one shard's tensors hold.
+    Along ``data`` the model shards repeat with one copy per distinct
+    device (the rule of :func:`index_replicas`): data row i of the device
+    grid reads model shard j on ``devices[i, j]``, so a 2 x 4 mesh on one
+    card holds four shards, not eight.
+
+    ``keys3`` / ``down`` / ``up`` are lists per model shard (the first data
+    row's); :meth:`tables` gives data row i's (keys3, down, up) per shard
+    and :meth:`group` its keys as a kernels.refine.ShardedKeys3, the
+    refinement's view. ``shard_cols`` is m, ``shard_bytes`` the bytes one
+    shard's tensors hold.
     """
 
     def __init__(self, index, mesh: Mesh):
-        _model_shards(mesh)
+        if "model" not in mesh.axis_names:
+            raise ValueError(
+                f"prefix-sharded placement needs a one-axis 'model' mesh or "
+                f"a ('data', 'model') mesh, not axes {mesh.axis_names}"
+            )
         if index.keys3 is None:
             raise ValueError("index built without join keys")
         keys3 = np.ascontiguousarray(index.keys3, dtype=np.uint32).view(
@@ -720,39 +774,188 @@ class Sharded3Index:
         lcs = np.asarray(index.lcs, dtype=np.uint8)[:n]
         up = np.zeros(n, dtype=np.uint8)
         up[: n - 1] = lcs[1:]
-        self.keys3, m = _split_columns(mesh, keys3, -1)
-        self.down, _ = _split_columns(mesh, lcs, 0)
-        self.up, _ = _split_columns(mesh, up, 0)
-        self.shard_cols = m
+        n_model = mesh.shape["model"]
+        blocks = [_column_blocks(t, n_model, fill)[0]
+                  for t, fill in ((keys3, -1), (lcs, 0), (up, 0))]
+        grid = mesh.devices.reshape(-1, n_model)
+        placed: dict = {}
+
+        def place(i, j):
+            if i * n_model + j not in mesh.local_shards:
+                return None
+            key = (j, str(grid[i, j]))
+            if key not in placed:
+                placed[key] = tuple(torch.from_numpy(b[j]).to(grid[i, j])
+                                    for b in blocks)
+            return placed[key]
+
+        self._rows = [[place(i, j) for j in range(n_model)]
+                      for i in range(grid.shape[0])]
+        self.keys3, self.down, self.up = (
+            [p and p[t] for p in self._rows[0]] for t in range(3))
+        self.shard_cols = m = -(-n // n_model)
         self.shard_bytes = m * (keys3.shape[0] * 4 + 2)
         self.n_rows = int(index.n_rows)
         self.k = int(index.k)
+        self.model_mesh = mesh
+        self._groups: dict = {}
+
+    def tables(self, i: int = 0):
+        """Data row i's (keys3, down, up) per model shard."""
+        return self._rows[i]
+
+    def group(self, i: int = 0) -> ShardedKeys3:
+        """Data row i's key shards as a ShardedKeys3; data rows on the same
+        devices share one (and its bucket tables)."""
+        shards = [p[0] for p in self._rows[i]]
+        key = tuple(id(s) for s in shards)
+        if key not in self._groups:
+            self._groups[key] = ShardedKeys3(shards, self.shard_cols)
+        return self._groups[key]
+
+
+def _group_rows_join(sidx: Sharded3Index, i: int, codes):
+    """(ms, uniq, rows) [Q, L] of a code batch (host array or tensor)
+    against model group i of the sharded table: every shard's partial join
+    (kernels.ms.ms3_rows_partial_core, row offset j * m) over the query
+    buffer copied to its device, one pmax for each pack and the finish on
+    the group's first device."""
+    shards = sidx.tables(i)
+    first = shards[0][0].device
+    k = sidx.k
+    if not isinstance(codes, torch.Tensor):
+        codes = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.uint8))
+    codes = codes.to(first)
+    Q, L = codes.shape
+    pad = torch.full((Q, k - 1), INVALID, dtype=torch.uint8, device=first)
+    buf = torch.cat([pad, codes], dim=1).reshape(-1)
+    copies = {str(first): buf}
+    m = sidx.shard_cols
+    packs = []
+    for j, (k3, dn, up) in enumerate(shards):
+        b = copies.setdefault(str(k3.device), buf.to(k3.device))
+        with device_scope(k3.device):
+            packs.append(ms3_rows_partial_core(k3, dn, up, j * m, b, k))
+    mesh = sidx.model_mesh
+    fp = pmax(mesh, [p[0] for p in packs], first)
+    bp = pmax(mesh, [p[1] for p in packs], first)
+    with device_scope(first):
+        ms, uniq, rows = ms3_rows_from_packed(fp, bp, sidx.n_rows, k)
+    stride = L + k - 1
+    return tuple(x.reshape(Q, stride)[:, k - 1 :] for x in (ms, uniq, rows))
 
 
 def ms3_rows_sweep_index_sharded(sidx: Sharded3Index, codes, mesh: Mesh):
     """(ms, uniq, rows) [Q, L] of a code batch (host array or tensor)
-    against the SHARDED key table: every shard's partial join
-    (kernels.ms.ms3_rows_partial_core, row offset i * m) over the
-    replicated query buffer, one pmax for each pack, the finish on the
-    first device. Equal to kernels.mapsweep.ms3_rows_sweep's outputs; rows
-    where uniq holds."""
+    against the SHARDED key table of a one-axis ``model`` mesh: every
+    shard's partial join over the replicated query buffer, one pmax for
+    each pack, the finish on the first device. Equal to
+    kernels.mapsweep.ms3_rows_sweep's outputs; rows where uniq holds."""
     _model_shards(mesh)
-    k = sidx.k
-    Q, L = codes.shape
-    m = sidx.shard_cols
-    parts = map_shards(
-        mesh,
-        lambda i, k3, dn, up, b: ms3_rows_partial_core(k3, dn, up, i * m, b,
-                                                       k),
-        range(mesh.devices.size), sidx.keys3, sidx.down, sidx.up,
-        _replicated_buffer(mesh, codes, k),
+    return _group_rows_join(sidx, 0, codes)
+
+
+def sharded_score_gaps(sidx: Sharded3Index, ref_mat, lengths, gap_start,
+                       gap_end_at, grid, threshold: int, bound: float, k: int,
+                       cap_ge: int, cap_ext: int):
+    """kernels.refine.score_gaps_core over the sharded table (data row 0's
+    model group): the candidate k-mer unpacks sum the shards' rows, and the
+    left extension's searches run per shard with an OR (the search loop);
+    the rest runs once on the group's first device, where the inputs
+    live."""
+    _one_process(sidx.model_mesh, "the sharded gap scoring")
+    return score_gaps_core(sidx.group(), ref_mat, lengths, gap_start,
+                           gap_end_at, grid, threshold, k, cap_ge, cap_ext,
+                           None, bound)
+
+
+def sharded_resolve_variants(sidx: Sharded3Index, seq_words, codes, ref_mat,
+                             ms, lengths, drop_pos, apos, arow, d: int,
+                             k: int, cap_d: int, d_lo: int = 0):
+    """kernels.refine.resolve_variants_core over the sharded table (data row
+    0's model group): the reference k-mer unpack sums the shards' rows; the
+    rk-vs-sequence join runs once on the group's first device (it joins
+    against the SEQUENCE keys ``seq_words``, not the index)."""
+    _one_process(sidx.model_mesh, "the sharded variant resolution")
+    return resolve_variants_core(sidx.group(), seq_words, codes, ref_mat,
+                                 ms, lengths, drop_pos, apos, arow, d, k,
+                                 cap_d, d_lo=d_lo)
+
+
+def _sharded_map_setup(ref_seqs, query_sbwt, opts, what: str):
+    """(threshold, code list, padded codes, lengths) of a map over a
+    sharded table; refuses what kbo_tpu's refuses."""
+    k = query_sbwt.k
+    if opts.call_variants and (k != opts.sbwt_build_opts.k
+                               or opts.sbwt_build_opts.add_revcomp):
+        raise ValueError(
+            f"{what} calls variants with the index's k and the forward "
+            f"strand only (the sharded path carries the forward text)"
+        )
+    threshold = random_match_threshold(k, query_sbwt.n_kmers, 4,
+                                       opts.max_error_prob)
+    code_list = [encode_ascii(bytes(r)) for r in ref_seqs]
+    codes, lengths = pad_batch(code_list, bucket=True)
+    return threshold, code_list, codes, lengths
+
+
+def map_batch_index_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
+                            mesh: Mesh | None = None) -> list[bytes]:
+    """Batched ``map_`` with the 3-bit index tables PREFIX-SHARDED over a
+    one-axis ``model`` mesh (the larger-than-one-card placement of the map
+    path; ``find`` has :func:`matches_batch_index_sharded`): the rows join
+    by shard with one pmax per pack, then the single-device map's
+    single-fetch refinement (refine.device_map.map_devref_finish) with the
+    table's unpacks and searches per shard (:func:`sharded_score_gaps`,
+    :func:`sharded_resolve_variants`), again at larger capacities when the
+    candidates overflowed. Gaps the device flags go to the exact host
+    evaluator. Byte for byte the single-device map's output. No API entry
+    point takes a ``model`` mesh: call this directly."""
+    from kbo_tpu_torch.refine.device_map import (
+        DevRefOverflow,
+        _pow2_cap,
+        map_devref_finish,
     )
-    fp = pmax(mesh, [p[0] for p in parts])
-    bp = pmax(mesh, [p[1] for p in parts])
-    with device_scope(mesh.devices[0]):
-        ms, uniq, rows = ms3_rows_from_packed(fp, bp, sidx.n_rows, k)
-    stride = L + k - 1
-    return tuple(x.reshape(Q, stride)[:, k - 1 :] for x in (ms, uniq, rows))
+
+    opts = map_opts or MapOpts()
+    if not ref_seqs:
+        return []
+    mesh = mesh or make_mesh(axis="model")
+    _model_shards(mesh)
+    _one_process(mesh, "the index-sharded map")
+    k = query_sbwt.k
+    threshold, code_list, codes, lengths = _sharded_map_setup(
+        ref_seqs, query_sbwt, opts, "the index-sharded map")
+    Q, L = codes.shape
+    if Q > max_tag(k) or Q * L >= 2**31:
+        raise ValueError(f"a [{Q}, {L}] batch exceeds the tagged join's "
+                         f"limits at k={k}")
+    sidx = Sharded3Index(query_sbwt, mesh)
+    ref_mat = ref_matrix(ref_seqs, Q, L)
+    d0 = mesh.devices[0]
+    codes_dev = torch.from_numpy(codes).to(d0)
+    lengths_dev = torch.from_numpy(lengths).to(d0)
+    ref_mat_dev = torch.from_numpy(ref_mat).to(d0)
+    with stage("map_sweep", bases=sum(c.size for c in code_list)):
+        ms_dev, uniq_dev, rows_dev = _group_rows_join(sidx, 0, codes_dev)
+        cap_d = cap_g = _pow2_cap(L // 512)
+        while True:
+            with device_scope(d0):
+                chars_dev, packed_dev, pieces = map_postprocess3_core(
+                    ms_dev, uniq_dev, rows_dev, lengths_dev, k, threshold,
+                    cap_d, cap_g, max(k - threshold + 1, 1),
+                )
+                try:
+                    return map_devref_finish(
+                        sidx, codes_dev, lengths_dev, ms_dev, chars_dev,
+                        pieces, packed_dev, ref_seqs, query_sbwt, opts,
+                        threshold, cap_d, cap_g,
+                        total_gap_slack=cap_g * 2 + 64, ref_mat=ref_mat,
+                        ref_mat_dev=ref_mat_dev,
+                    )
+                except DevRefOverflow as o:
+                    cap_d = _pow2_cap(o.need_d)
+                    cap_g = _pow2_cap(o.need_g)
 
 
 def matches_batch_index_sharded(index, code_list: list[np.ndarray],
@@ -789,3 +992,84 @@ def matches_batch_index_sharded(index, code_list: list[np.ndarray],
             ms, k, int(threshold), torch.from_numpy(lengths).to(d0))
     chars = chars.cpu().numpy()
     return [chars[i, : c.size] for i, c in enumerate(code_list)]
+
+
+# ----------------------------- 2-D placement: data x model at once
+
+
+def _stage1_2d(sidx: Sharded3Index, codes_p):
+    """The dense (ms, uniq, rows) of each data row's contig block against its
+    model group (:func:`_group_rows_join`: a partial join per (data, model)
+    shard, pmax over ``model`` only), on the group's first device."""
+    return [_group_rows_join(sidx, i, c) for i, c in enumerate(codes_p)]
+
+
+def _stage2_2d(sidx: Sharded3Index, codes_p, ref_p, len_p, sweep_p,
+               threshold: int, bound: float, k: int, opts, cap_d: int,
+               cap_g: int, cap_ext: int, cap_r: int) -> np.ndarray:
+    """refine.device_map.devref_core per data row with its model group's
+    sharded table (the search loop's left extension, no chain table: it
+    syncs once a round); the delta blocks [n_data, 4, cap_r] are fetched
+    together after the last row."""
+    from kbo_tpu_torch.refine.device_map import devref_core
+
+    blocks = []
+    for i, (co, rm, le, sw) in enumerate(zip(codes_p, ref_p, len_p, sweep_p)):
+        with device_scope(co.device):
+            blocks.append(devref_core(
+                sidx.group(i), co, rm, le, *sw, threshold, k, cap_d, cap_g,
+                cap_ext, cap_r, bool(opts.fill_gaps),
+                bool(opts.call_variants), bool(opts.format),
+                d_lo=max(threshold - 1, 0), w_grid=max(k - threshold + 1, 1),
+                ext_tab=None, bound=bound,
+            )[0])
+    return np.stack([b.cpu().numpy() for b in blocks])
+
+
+def map_batch_2d_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
+                         mesh: Mesh | None = None) -> list[bytes] | None:
+    """Batched ``map_`` over a 2-D ``("data", "model")`` mesh: the contig
+    batch shards over ``data`` (Q padded to a multiple of its size) while
+    the 3-bit key table prefix-shards over ``model``, the placement where
+    neither the batch nor the index fits one card. Each data row runs the
+    contig-sharded map's whole refinement (refine.device_map.devref_core)
+    against its model group; the host pays one fetch of the per-row delta
+    blocks. Byte for byte the single-device map's output, or None when a
+    gap needs the exact host evaluator (as kbo_tpu's: callers take a 1-D
+    path then). No API entry point takes this mesh: call this directly."""
+    from kbo_tpu_torch.refine.device_map import devref_sharded_finish
+
+    opts = map_opts or MapOpts()
+    if not ref_seqs:
+        return []
+    if mesh is None or mesh.axis_names != ("data", "model"):
+        raise ValueError("map_batch_2d_sharded needs a ('data', 'model') "
+                         "mesh (make_mesh((d, m), axis=('data', 'model')))")
+    _one_process(mesh, "the 2-D map")
+    k = query_sbwt.k
+    threshold, code_list, codes, lengths = _sharded_map_setup(
+        ref_seqs, query_sbwt, opts, "the 2-D map")
+    nd = mesh.shape["data"]
+    codes, lengths = pad_rows(codes, lengths, nd)
+    Q, L = codes.shape
+    q_per = Q // nd
+    if q_per > max_tag(k) or q_per * L >= 2**31:
+        raise ValueError(f"[{q_per}, {L}] contig blocks exceed the tagged "
+                         f"join's limits at k={k}")
+    sidx = Sharded3Index(query_sbwt, mesh)
+    ref_mat = ref_matrix(ref_seqs, Q, L)
+
+    def blocks_of(arr):
+        return [torch.from_numpy(np.ascontiguousarray(
+            arr[i * q_per : (i + 1) * q_per])).to(mesh.devices[i, 0])
+            for i in range(nd)]
+
+    codes_p, ref_p, len_p = (blocks_of(a) for a in (codes, ref_mat, lengths))
+    bound = prob_bound(opts.max_error_prob)
+    with stage("map_sweep", bases=sum(c.size for c in code_list)):
+        sweep_p = _stage1_2d(sidx, codes_p)
+        return devref_sharded_finish(
+            ref_seqs, ref_mat, nd, opts,
+            lambda *caps: _stage2_2d(sidx, codes_p, ref_p, len_p, sweep_p,
+                                     threshold, bound, k, opts, *caps),
+        )

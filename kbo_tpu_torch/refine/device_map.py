@@ -1,5 +1,5 @@
 """Single-fetch map refinement and assembly (PyTorch; counterpart of
-kbo_tpu/refine/device_map.py, single-device branch).
+kbo_tpu/refine/device_map.py).
 
 After the 3-bit sweep and the candidate compaction (kernels/mapsweep.py)
 the refinement stays on the device: variant resolution and gap scoring
@@ -19,8 +19,10 @@ touches candidate data only on the rare fallback paths:
 Over a ``data`` mesh (kbo_tpu_torch.parallel.mesh) the contig-sharded map
 (:func:`map_devref_data_sharded`) runs the whole refinement per shard as
 one function (:func:`devref_core`) and pays one gather of the per-shard
-delta blocks; the sequence-sharded map splits gap slots and the variant
-join's sequence table inside :func:`map_devref_finish`.
+delta blocks (:func:`devref_sharded_finish`; the 2-D ``("data", "model")``
+map shares it); the sequence-sharded map splits gap slots and the variant
+join's sequence table inside :func:`map_devref_finish`, and the
+index-sharded map reads its key table by shard there.
 
 Reference semantics: map = src/lib.rs:720-761; variant calling =
 src/variant_calling.rs:249-294; gap filling = src/gap_filling.rs:444-526.
@@ -124,7 +126,8 @@ def map_devref_finish(
     """Run the device refinement + assembly and reconstruct the output.
 
     ``dev`` is the index's :class:`~kbo_tpu_torch.kernels.ms.DeviceIndex`
-    (or the sequence-sharded map's holder, kbo_tpu_torch.parallel.mesh),
+    (or the sequence-sharded map's holder or a prefix-sharded
+    ``Sharded3Index``, kbo_tpu_torch.parallel.mesh),
     ``codes_dev`` / ``ms_dev`` the sweep's [Q, L] codes and MS,
     ``chars_dev`` / ``packed_dev`` / ``pieces`` the postprocess outputs
     (kernels/mapsweep.map_postprocess3_core), ``ref_mat`` the padded [Q, L]
@@ -154,13 +157,13 @@ def map_devref_finish(
     # host pass, not correctness
     cap_ext = _pow2_cap(max(4 * cap_g, 32 * Q), lo=256)
     # a sequence-sharded holder (parallel.mesh._SeqShardedDev) splits the
-    # gap slots and the variant join's sequence table over its mesh
+    # gap slots and the variant join's sequence table over its mesh; a
+    # prefix-sharded index (parallel.mesh.Sharded3Index) reads its table by
+    # shard (the unpacks, and the search loop for the left extension)
     seq_mesh = getattr(dev, "seq_mesh", None)
-    if seq_mesh is not None:
-        from kbo_tpu_torch.parallel.mesh import (
-            seqsh_resolve_variants,
-            seqsh_score_gaps,
-        )
+    model_mesh = getattr(dev, "model_mesh", None)
+    if seq_mesh is not None or model_mesh is not None:
+        from kbo_tpu_torch.parallel import mesh as pmesh
     if opts.fill_gaps:
         gap_args = (
             ref_mat_dev, lengths_dev, pieces["gap_start"],
@@ -168,9 +171,13 @@ def map_devref_finish(
         )
         bound = prob_bound(opts.max_error_prob)
         if seq_mesh is not None:
-            gpos, gpv, needs_host_dev, gap_counters_dev = seqsh_score_gaps(
-                dev, *gap_args, bound, k, cap_ge, cap_ext
-            )
+            gpos, gpv, needs_host_dev, gap_counters_dev = \
+                pmesh.seqsh_score_gaps(dev, *gap_args, bound, k, cap_ge,
+                                       cap_ext)
+        elif model_mesh is not None:
+            gpos, gpv, needs_host_dev, gap_counters_dev = \
+                pmesh.sharded_score_gaps(dev, *gap_args, bound, k, cap_ge,
+                                         cap_ext)
         else:
             gpos, gpv, needs_host_dev, gap_counters_dev = score_gaps_core(
                 dev.keys3, *gap_args, k, cap_ge, cap_ext, get_ext_table(dev),
@@ -179,10 +186,19 @@ def map_devref_finish(
         pos_grids.append(gpos)
         pv_grids.append(gpv)
     if opts.call_variants and seq_mesh is not None:
-        vpos, vpv, n_var_dev = seqsh_resolve_variants(
+        vpos, vpv, n_var_dev = pmesh.seqsh_resolve_variants(
             dev, codes_dev, ref_mat_dev, ms_dev, lengths_dev,
             pieces["drop_pos"], pieces["apos"], pieces["arow"], threshold, k,
             cap_d, d_lo=max(int(threshold) - 1, 0),
+        )
+        pos_grids.append(vpos)
+        pv_grids.append(vpv)
+    elif opts.call_variants and model_mesh is not None:
+        vpos, vpv, n_var_dev = pmesh.sharded_resolve_variants(
+            dev, seq_keys3_tagged_core(codes_dev, k), codes_dev, ref_mat_dev,
+            ms_dev, lengths_dev, pieces["drop_pos"], pieces["apos"],
+            pieces["arow"], threshold, k, cap_d,
+            d_lo=max(int(threshold) - 1, 0),
         )
         pos_grids.append(vpos)
         pv_grids.append(vpv)
@@ -355,7 +371,9 @@ def devref_core(keys3, codes, ref_mat, lengths, ms, uniq, rows,
     """The whole post-sweep refinement of a [Q, L] contig block as one
     function: postprocess, variant resolution, gap scoring, priority
     assembly and the packed delta block. Every stage is contig-local, so
-    it runs per shard of a contig-sharded batch.
+    it runs per shard of a contig-sharded batch. ``keys3`` may be a
+    kernels.refine.ShardedKeys3 (the 2-D mesh's model group; ``ext_tab``
+    None then: the left extension takes the search loop).
 
     Returns (delta4 int32 [4, cap_r] -- :func:`fetch_delta_runs_extras`'s
     layout, row 3 the run count, checksum and the counters that
@@ -415,9 +433,7 @@ def map_devref_data_sharded(ref_seqs, query_sbwt, code_list, opts,
     nd = mesh.devices.size
     codes, lengths = pmesh.pad_rows(*pad_batch(code_list, bucket=True), nd)
     Q, L = codes.shape
-    ref_mat = np.zeros((Q, L), dtype=np.uint8)
-    for q, r in enumerate(ref_seqs):
-        ref_mat[q, : len(r)] = np.frombuffer(bytes(r), dtype=np.uint8)
+    ref_mat = pmesh.ref_matrix(ref_seqs, Q, L)
     reps = pmesh.index_replicas(query_sbwt, mesh)
     codes_p = pmesh.shard_rows(mesh, codes)
     ref_p = pmesh.shard_rows(mesh, ref_mat)
@@ -428,17 +444,9 @@ def map_devref_data_sharded(ref_seqs, query_sbwt, code_list, opts,
         reps, codes_p,
     )
 
-    # the single-device path's optimistic capacities
-    cap_d = _pow2_cap(L // 1024)
-    cap_g = _pow2_cap(L // 1536, lo=256)
-    q_per = Q // nd
-    cap_r_floor = 0
     bound = prob_bound(opts.max_error_prob)
-    for _attempt in range(3):
-        cap_ext = _pow2_cap(max(4 * cap_g, 32 * q_per), lo=256)
-        cap_r = max(_pow2_cap(int(q_per * (L // 1024) + cap_g // 2 + 256)),
-                    cap_r_floor)
 
+    def run(cap_d, cap_g, cap_ext, cap_r):
         def shard(dv, co, rm, le, sw):
             return devref_core(
                 dv.keys3, co, rm, le, *sw, threshold, k, cap_d, cap_g,
@@ -450,16 +458,42 @@ def map_devref_data_sharded(ref_seqs, query_sbwt, code_list, opts,
                 bound=bound,
             )[0][None]
 
-        blocks = pmesh.gather_to_host(mesh, pmesh.map_shards(
+        return pmesh.gather_to_host(mesh, pmesh.map_shards(
             mesh, shard, reps, codes_p, ref_p, len_p, sweep_p))
+
+    return devref_sharded_finish(ref_seqs, ref_mat, nd, opts, run)
+
+
+def devref_sharded_finish(ref_seqs, ref_mat, n_shards: int, opts, run):
+    """The host side of a contig-sharded single-fetch map over n_shards
+    blocks of q_per contigs (the padded [Q, L] ``ref_mat`` split by rows):
+    ``run(cap_d, cap_g, cap_ext, cap_r)`` runs :func:`devref_core` on every
+    block and returns their delta blocks on the host, [n_shards, 4, cap_r];
+    they run again at larger capacities when candidates or runs overflowed
+    (at most three tries), and the runs are painted onto the canvas.
+    Returns None when a gap needs the exact host evaluator (their count to
+    the run's stats, ``gaps_to_host``) or the tries run out."""
+    Q, L = ref_mat.shape
+    q_per = Q // n_shards
+    # the single-device path's optimistic capacities
+    cap_d = _pow2_cap(L // 1024)
+    cap_g = _pow2_cap(L // 1536, lo=256)
+    cap_r_floor = 0
+    for _attempt in range(3):
+        cap_ext = _pow2_cap(max(4 * cap_g, 32 * q_per), lo=256)
+        cap_r = max(_pow2_cap(int(q_per * (L // 1024) + cap_g // 2 + 256)),
+                    cap_r_floor)
+        blocks = run(cap_d, cap_g, cap_ext, cap_r)
         max_d = int(blocks[:, 3, 2].max())
         max_g = int(blocks[:, 3, 3].max())
         if max_d > cap_d or max_g > cap_g:
             cap_d = max(cap_d, _pow2_cap(max_d))
             cap_g = max(cap_g, _pow2_cap(max_g))
             continue
-        if int(blocks[:, 3, 4].sum()) > 0:
-            return None  # a gap for the host evaluator: the classic path
+        n_host = int(blocks[:, 3, 4].sum())
+        if n_host:
+            get_stats().add("gaps_to_host", n_host)
+            return None  # a gap for the host evaluator
         max_runs = int(blocks[:, 3, 0].max())
         if max_runs > cap_r:
             cap_r_floor = _pow2_cap(max_runs)

@@ -904,3 +904,72 @@ def test_map_e2e_equals_map_on_card(cuda):
     assert n_var > 0
     assert kbo_tpu_torch.map_(ref, idx, kbo_tpu_torch.MapOpts(
         sbwt_build_opts=bo), device=cuda) == out
+
+
+def test_sharded_maps_on_card(cuda):
+    """map_batch_index_sharded over four model shards and
+    map_batch_2d_sharded over a 2 x 4 mesh on one card equal the CPU runs
+    of the same calls and the card's single-device map_batch, byte for
+    byte."""
+    from kbo_tpu_torch.parallel import mesh as pmesh
+
+    ref, query = _mesh_pair()
+    bo = kbo_tpu_torch.BuildOpts(k=51, build_select=True)
+    idx = kbo_tpu_torch.build([query], bo)
+    opts = kbo_tpu_torch.MapOpts(sbwt_build_opts=bo)
+    refs = [ref[:9000], ref[9000:14000], ref[14000:23000], ref[23000:]]
+    model = pmesh.make_mesh(4, axis="model", device="cuda:0")
+    model_cpu = pmesh.make_mesh(4, axis="model", device="cpu")
+    got = pmesh.map_batch_index_sharded(refs, idx, opts, model)
+    assert got == pmesh.map_batch_index_sharded(refs, idx, opts, model_cpu)
+    assert got == kbo_tpu_torch.map_batch(refs, idx, opts, device=cuda)
+    grid = pmesh.make_mesh((2, 4), axis=("data", "model"), device="cuda:0")
+    grid_cpu = pmesh.make_mesh((2, 4), axis=("data", "model"), device="cpu")
+    got2 = pmesh.map_batch_2d_sharded(refs, idx, opts, grid)
+    assert got2 is not None
+    assert got2 == pmesh.map_batch_2d_sharded(refs, idx, opts, grid_cpu)
+    assert got2 == got
+
+
+@pytest.mark.parametrize("k", [51, 127])
+def test_search_loop_on_card(cuda, k):
+    """The bucket table, the lower bound, membership and the left
+    extension on the card equal the CPU twins, over the single table and
+    over four shards on the card; at k = 127 the probes are 13 words (the
+    rows join's largest W)."""
+    from kbo_tpu_torch.kernels import refine
+    from kbo_tpu_torch.parallel import mesh as pmesh
+
+    _, query = _mesh_pair(8_000)
+    idx = kbo_tpu_torch.build([query], kbo_tpu_torch.BuildOpts(k=k))
+    keys3 = device_index(idx, "cpu").keys3
+    rng = np.random.default_rng(k)
+    rows = torch.from_numpy(rng.integers(-1, idx.n_rows, 512).astype(np.int32))
+    kmers = refine.unpack_rows3(keys3, rows, k)
+    packed = refine._pack_codes_matrix(kmers, k)
+    assert packed.shape[0] == (k + 9) // 10
+    probes = packed.clone()
+    probes[0, ::3] ^= 1 << 3
+    budgets = torch.from_numpy(rng.integers(0, k + 1, 512).astype(np.int32))
+    tbl = refine.bucket_table(keys3)
+    assert torch.equal(refine.bucket_table(keys3.to(cuda)).cpu(), tbl)
+    assert torch.equal(refine._pack_codes_matrix(kmers.to(cuda), k).cpu(),
+                       packed)
+    for t in (None, tbl):
+        tc = None if t is None else t.to(cuda)
+        assert torch.equal(refine._lower_bound_device(
+            keys3.to(cuda), probes.to(cuda), tc).cpu(),
+            refine._lower_bound_device(keys3, probes, t))
+        assert torch.equal(refine._member_rows_device(
+            keys3.to(cuda), probes.to(cuda), tc).cpu(),
+            refine._member_rows_device(keys3, probes, t))
+    want = refine.left_extend_device(keys3, kmers, budgets, k, tbl)
+    got = refine.left_extend_device(keys3.to(cuda), kmers.to(cuda),
+                                    budgets.to(cuda), k, tbl.to(cuda))
+    sk = pmesh.Sharded3Index(idx, pmesh.make_mesh(
+        4, axis="model", device="cuda:0")).group()
+    got4 = refine.left_extend_device(sk, kmers.to(cuda), budgets.to(cuda), k)
+    for g, g4, w in zip(got, got4, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(g4.cpu(), w)
+    assert torch.equal(refine.unpack_rows3(sk, rows.to(cuda), k).cpu()[
+        rows >= 0], kmers[rows >= 0])

@@ -94,24 +94,36 @@ def test_make_mesh_rules():
 @pytest.mark.parametrize("build", [
     (lambda: tmesh.make_mesh(2, axis="model", device="cpu"), "model"),
     (lambda: tmesh.Mesh([torch.device("cpu")] * 2, ("model",)), "model"),
-    (lambda: tmesh.Mesh([torch.device("cpu")] * 4, ("data", "model")), "2-D"),
+    (lambda: tmesh.make_mesh((2, 2), axis=("data", "model"), device="cpu"),
+     "2-D"),
     (lambda: tmesh.Mesh(np.array([torch.device("cpu")] * 4,
                                  dtype=object).reshape(2, 2), ("data",)),
-     "2-D"),
+     "mismatch 1-D"),
+    (lambda: tmesh.Mesh([torch.device("cpu")] * 4, ("data", "model")),
+     "mismatch 2-D"),
 ])
-def test_model_and_2d_meshes_name_item_8b(build):
-    """A one-axis 'model' mesh builds (the prefix-sharded placement,
-    tests/test_torch_mesh_model.py), and the API entry points, which shard
-    batches over 'data', refuse it naming the functions that take it; the
-    2-D meshes raise naming item 8b.2."""
+def test_model_and_2d_meshes_build_the_api_refuses_them(build):
+    """A one-axis 'model' mesh and the 2-D ('data', 'model') mesh build
+    (the prefix-sharded placement, tests/test_torch_mesh_model.py and
+    tests/test_torch_mesh_model_map.py), and the API entry points, which
+    shard batches over a one-axis 'data' mesh, refuse them naming the
+    functions that take them; a device array whose dimensions do not match
+    the axes raises."""
     make, kind = build
-    if kind == "2-D":
-        with pytest.raises(NotImplementedError, match="item 8b.2"):
+    if kind.startswith("mismatch"):
+        ndim = kind.split()[1]
+        with pytest.raises(ValueError, match=f"takes a {ndim} device array"):
             make()
         return
     mesh = make()
-    assert mesh.axis_names == ("model",) and mesh.shape == {"model": 2}
-    assert mesh.devices.size == 2 and list(mesh.local_shards) == [0, 1]
+    if kind == "2-D":
+        assert mesh.axis_names == ("data", "model")
+        assert mesh.shape == {"data": 2, "model": 2}
+        assert mesh.devices.shape == (2, 2) and list(mesh.local_shards) == [
+            0, 1, 2, 3]
+    else:
+        assert mesh.axis_names == ("model",) and mesh.shape == {"model": 2}
+        assert mesh.devices.size == 2 and list(mesh.local_shards) == [0, 1]
     rng = np.random.default_rng(2)
     ref = BASES[rng.integers(0, 4, 1200)].tobytes()
     t_idx = kbo_tpu_torch.build([ref], kbo_tpu_torch.BuildOpts(k=9))
