@@ -117,7 +117,15 @@ Phases, each printed as it passes; any failure exits non-zero:
    map, a shard of the 8-contig batch) against their plain versions; two
    processes on the one card (this script with --mesh-worker, joined by a
    gloo group): matches_batch_sharded over the 2 x 2 global mesh and the
-   per-process map merge, both digests equal to one process's;
+   per-process map merge, both digests equal to one process's; then, with
+   phase 5's index saved once (index.serialize) for both, five full-width
+   calls over meshes that span the two processes, each equal in both to
+   its one-process twin: map_batch([genome]) (route 1) and
+   map_batch_index_sharded over 4 model shards to the default map_, the
+   8-contig map_batch (route 2) and map_batch_2d_sharded over a 4 x 2 grid
+   to the single-device map_batch, call to the single-device call; the
+   routes, each process's launches, dist_bytes and dist time, the left
+   extension's rounds and lanes and each process's peak memory;
 6d. the single-core engine (kbo_tpu_torch/native.py over native_src's
    kbo_cpu.cpp and kbo_refine.cpp) as the oracle at bench size:
    native.map_e2e over the pair on one CPU core, its byte mismatches
@@ -149,7 +157,8 @@ Phases, each printed as it passes; any failure exits non-zero:
    the host; merge_path, both clamp_scan directions and
    derandomize_translate at these calls' shapes (the index-sharded
    variant join, a 2-D stage-1 shard, the 2-D variant join, a data row's
-   block) against their plain versions;
+   block, over 2 x 4 and over 4 x 2, the two-process run's grid) against
+   their plain versions;
 7. times on the card (CUDA events or the host clock, medians of 7, of 3
    for gap filling's host numpy at full width; by
    stage, the refinement's stages and the per-index extension table
@@ -164,7 +173,9 @@ Phases, each printed as it passes; any failure exits non-zero:
    at k=151 by the host clock, by its host steps from the run's stats and
    by device stage, the k=254 and 8-contig maps, the k=51 2-bit flow
    beside the default route, the over-budget sweep; each mesh call
-   beside its single-device twin, the k=151 one once; native ms_stream
+   beside its single-device twin, the k=151 one once; the two-process
+   run's calls (each process's median of 3) beside one process over the
+   same shards, their launches summed over the processes; native ms_stream
    beside query_ms_device and map_e2e beside map_; the model axis's two
    calls beside their single-device twins; the sharded maps (the 2-D one
    over 2 x 4 and 4 x 2) beside theirs and the index-sharded map's stages: the placement, the rows
@@ -249,6 +260,109 @@ def _workload(n: int):
     return ref, bytes(query)
 
 
+def _contigs_of(seq):
+    """Eight contigs of up to 500 kbase from along the sequence."""
+    step = len(seq) // 8
+    return [seq[i * step : i * step + min(500_000, step)] for i in range(8)]
+
+
+def _out_digest(out) -> str:
+    """sha256 of a map's output bytes, or of call's variants (position,
+    query and reference chars); "None" for None."""
+    import hashlib
+
+    if out is None:
+        return "None"
+    if out and not isinstance(out[0], bytes):
+        out = [repr((v.query_pos, v.query_chars, v.ref_chars)).encode()
+               for v in out]
+    return hashlib.sha256(b"\0".join(out)).hexdigest()
+
+
+# the two-process run's full-width calls: name -> (what it equals, the
+# one-process twin's launches key in phase 6c / 6e)
+TWO_PROC_CALLS = {
+    "map_batch([genome])": ("the default map_", "map_batch mesh format=True"),
+    "map_batch 8 contigs": ("the single-device 8-contig map_batch",
+                            "map_batch mesh 8 contigs"),
+    "call": ("the single-device call", "call mesh"),
+    "map_batch_index_sharded": ("the default map_",
+                                "map_batch_index_sharded"),
+    "map_batch_2d_sharded 4 x 2": ("the single-device 8-contig map_batch",
+                                   "map_batch_2d_sharded 4 x 2"),
+}
+
+
+def _two_process_calls(index_path: str, n: int) -> dict:
+    """One process's part of the two-process run at full width: phase 5's
+    indexed side loaded from ``index_path`` (index.serialize), bench.py's
+    pair at k = 51 with MapOpts(), each process a 2-shard data mesh, a
+    2-shard model mesh and a 2 x 2 grid on cuda:0 (4 shards, and a 4 x 2
+    grid, over both processes). Per call: the output's digest, the route
+    and counters of the run's stats (dist_bytes, dist_s, ...), the kernel
+    launches and the peak memory of one run, then the median of 3 on the
+    host clock."""
+    import torch
+
+    from kbo_tpu_torch import BuildOpts, CallOpts, MapOpts, api
+    from kbo_tpu_torch.index import serialize
+    from kbo_tpu_torch.kernels.join import clamp_scan
+    from kbo_tpu_torch.kernels.postprocess import derandomize_translate
+    from kbo_tpu_torch.kernels.sort import merge_path
+    from kbo_tpu_torch.parallel import mesh as pmesh
+    from kbo_tpu_torch.utils.stats import get_stats, reset_stats
+
+    t0 = time.perf_counter()
+    index = serialize.load_index(index_path)
+    ref, _ = _workload(n)
+    contigs = _contigs_of(ref)
+    load_s = time.perf_counter() - t0
+    bo = BuildOpts(k=K, build_select=True)
+    mo = MapOpts(sbwt_build_opts=bo)
+    data = pmesh.make_mesh(2, device="cuda:0")
+    model = pmesh.make_mesh(2, axis="model", device="cuda:0")
+    grid = pmesh.make_mesh((2, 2), axis=("data", "model"), device="cuda:0")
+    fns = {
+        "map_batch([genome])": lambda: api.map_batch([ref], index, mo,
+                                                     mesh=data),
+        "map_batch 8 contigs": lambda: api.map_batch(contigs, index, mo,
+                                                     mesh=data),
+        "call": lambda: api.call(index, ref, CallOpts(sbwt_build_opts=bo),
+                                 mesh=data),
+        "map_batch_index_sharded": lambda: pmesh.map_batch_index_sharded(
+            [ref], index, mo, model),
+        "map_batch_2d_sharded 4 x 2": lambda: pmesh.map_batch_2d_sharded(
+            contigs, index, mo, grid),
+    }
+    kernels = {"merge_path": merge_path, "clamp_scan": clamp_scan,
+               "derandomize_translate": derandomize_translate}
+    keep = ("mesh_", "dist_", "left_ext_", "gaps_", "call_anchor_rounds",
+            "variants_called")
+    out = {"load_s": load_s, "calls": {}}
+    for name, fn in fns.items():
+        for f in kernels.values():
+            f.launches = 0
+        reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        got = fn()
+        torch.cuda.synchronize()
+        stats = get_stats().as_dict()
+        row = {"digest": _out_digest(got),
+               "launches": {k: f.launches for k, f in kernels.items()},
+               "stats": {k: v for k, v in stats.items() if k.startswith(keep)},
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        del got
+        ts = []
+        for _ in range(3):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        row["ms"] = statistics.median(ts)
+        out["calls"][name] = row
+    return out
+
+
 def _mesh_digests(mesh, rank):
     """The two-process run's digests over ``mesh``: sha256 of
     matches_batch_sharded's chars for 63 queries of 1500 bases against a
@@ -295,10 +409,11 @@ def _mesh_digests(mesh, rank):
             hashlib.sha256(merged.tobytes()).hexdigest()]
 
 
-def _mesh_worker(out_path: str) -> int:
+def _mesh_worker(out_path: str, index_path: str, n: int) -> int:
     """One process of chip_smoke's two-process mesh run (torchrun's
     environment names the group): a 2-shard mesh on cuda:0 here, 4 shards
-    over both processes."""
+    over both processes; the two digests, then the full-width calls
+    (:func:`_two_process_calls`), written to ``out_path`` as JSON."""
     import torch.distributed as dist
 
     from kbo_tpu_torch.parallel import distributed, mesh as pmesh
@@ -308,9 +423,10 @@ def _mesh_worker(out_path: str) -> int:
     mesh = pmesh.make_mesh(2, device="cuda:0")
     if mesh.devices.size != 4:
         return 1
-    digests = _mesh_digests(mesh, distributed.process_index())
+    out = {"digests": _mesh_digests(mesh, distributed.process_index())}
+    out.update(_two_process_calls(index_path, n))
     with open(out_path, "w") as fh:
-        fh.write("\n".join(digests))
+        json.dump(out, fh)
     dist.destroy_process_group()
     return 0
 
@@ -320,9 +436,12 @@ def main() -> int:
     ap.add_argument("--genome", type=float, default=4.6e6)
     ap.add_argument("--mesh-worker", metavar="OUT",
                     help="run one process of the two-process mesh run")
+    ap.add_argument("--mesh-index", metavar="PATH",
+                    help="the two-process run's saved index")
     args = ap.parse_args()
     if args.mesh_worker:
-        return _mesh_worker(args.mesh_worker)
+        return _mesh_worker(args.mesh_worker, args.mesh_index,
+                            int(args.genome))
 
     import torch
 
@@ -332,6 +451,7 @@ def main() -> int:
     from kbo_tpu_torch import native
     from kbo_tpu_torch import pipeline as pipeline_mod
     from kbo_tpu_torch.engine import compute_ms_values_many_device, device_index
+    from kbo_tpu_torch.index import serialize
     from kbo_tpu_torch.index.encode import encode_ascii, revcomp_ascii
     from kbo_tpu_torch.kernels import _build
     from kbo_tpu_torch.kernels.join import _lib as join_lib
@@ -507,11 +627,7 @@ def main() -> int:
         return MapOpts(format=fmt, sbwt_build_opts=BuildOpts(
             k=K, build_select=True))
 
-    def contigs_of(seq):
-        """Eight contigs of up to 500 kbase from along the sequence."""
-        step = len(seq) // 8
-        return [seq[i * step : i * step + min(500_000, step)]
-                for i in range(8)]
+    contigs_of = _contigs_of
 
     # ---- workload and index (host build, as a user would)
     n = int(args.genome)
@@ -2008,19 +2124,33 @@ def main() -> int:
     # two processes on the one card, joined by a gloo group: each brings a
     # 2-shard mesh on cuda:0, matches_batch_sharded runs over the 4-shard
     # global mesh, and map_batch's per-process halves merge with one
-    # process_allgather; both must write the single process's digests
+    # process_allgather; both must write the single process's digests.
+    # Then the full-width calls over meshes that span both processes
+    # (_two_process_calls, phase 5's index saved once for both), each equal
+    # to its one-process twin in both processes, their routes agreeing
     t = time.perf_counter()
     want_digests = _mesh_digests(pmesh.make_mesh(4, device="cuda:0"), None)
+    want_calls = {
+        "map_batch([genome])": _out_digest([dmap_gpu[True]]),
+        "map_batch 8 contigs": _out_digest(dbatch_gpu),
+        "call": _out_digest(call_gpu),
+        "map_batch_index_sharded": _out_digest([dmap_gpu[True]]),
+        "map_batch_2d_sharded 4 x 2": _out_digest(dbatch_gpu),
+    }
     with tempfile.TemporaryDirectory() as tmp:
+        t_save = time.perf_counter()
+        index_path = serialize.save_index(os.path.join(tmp, "index"), index)
+        t_save = time.perf_counter() - t_save
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
-        outs = [os.path.join(tmp, f"digests_{r}.txt") for r in range(2)]
+        outs = [os.path.join(tmp, f"worker_{r}.json") for r in range(2)]
         here = os.path.dirname(os.path.abspath(__file__))
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--mesh-worker",
-             outs[r]],
+             outs[r], "--mesh-index", index_path, "--genome", str(n)],
             env=dict(os.environ, WORLD_SIZE="2", RANK=str(r),
+                     LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2",
                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                      PYTHONPATH=here + os.pathsep
                      + os.environ.get("PYTHONPATH", "")),
@@ -2037,16 +2167,82 @@ def main() -> int:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        got_digests = [open(o).read().split() for o in outs]
+        two_proc = []
+        for o in outs:
+            with open(o) as fh:
+                two_proc.append(json.load(fh))
+    got_digests = [w["digests"] for w in two_proc]
     if got_digests[0] != got_digests[1] or got_digests[0] != want_digests:
         raise SystemExit(f"FAIL the two-process mesh run's digests "
                          f"{got_digests} differ from one process's "
                          f"{want_digests}")
+
+    def two_proc_want(name, row):
+        """One process's launches in the two-process run: its own 2 shards'
+        joins, and the stages each process runs once (the sequence-sharded
+        postprocess, call's row join and anchor rounds, the index-sharded
+        map's finish), or per local data row."""
+        if name == "map_batch([genome])":
+            return {"merge_path": 4, "clamp_scan": 8,
+                    "derandomize_translate": 1}
+        if name == "map_batch 8 contigs":
+            return {"merge_path": 4, "clamp_scan": 8,
+                    "derandomize_translate": 2}
+        if name == "call":
+            return {"merge_path": 3 + row["stats"]["call_anchor_rounds"],
+                    "clamp_scan": 8, "derandomize_translate": 0}
+        rows = 1 if name == "map_batch_index_sharded" else 2
+        tries = row["launches"]["derandomize_translate"]
+        if not rows <= tries <= 3 * rows:
+            return f"{rows} to {3 * rows} finishes"
+        return {"merge_path": 2 * rows + tries,
+                "clamp_scan": 4 * rows + 2 * tries,
+                "derandomize_translate": tries}
+
+    for name, (twin, _) in TWO_PROC_CALLS.items():
+        rows = [w["calls"][name] for w in two_proc]
+        for r, row in enumerate(rows):
+            if row["digest"] != want_calls[name]:
+                raise SystemExit(f"FAIL two processes: {name} in process {r} "
+                                 f"differs from {twin}")
+            want = two_proc_want(name, row)
+            if row["launches"] != want:
+                raise SystemExit(f"FAIL two processes: {name}'s launches in "
+                                 f"process {r} {row['launches']}, expected "
+                                 f"{want}")
+        routes = [sorted(k for k in row["stats"] if k.startswith("mesh_"))
+                  for row in rows]
+        if routes[0] != routes[1] or (name in ("map_batch([genome])",
+                                               "map_batch 8 contigs", "call")
+                                      and routes[0] != sorted(mesh_routes[
+                                          TWO_PROC_CALLS[name][1]])):
+            raise SystemExit(f"FAIL two processes: {name}'s routes {routes} "
+                             f"differ from each other or one process's")
+        st = rows[0]["stats"]
+        print(f"mesh: two processes (cuda:0 each, 4 shards"
+              + (", a 4 x 2 grid" if "2d" in name else "") + f"): {name} "
+              f"equals {twin} in both; route "
+              f"{routes[0] or 'none (no routing)'}; launches per process "
+              f"{rows[0]['launches']} / {rows[1]['launches']}; dist_bytes "
+              f"{st.get('dist_bytes', 0)} in {st.get('dist_calls', 0)} calls "
+              f"({st.get('dist_s', 0) * 1e3:.3f} ms)"
+              + (f"; left extension {st.get('left_ext_rounds', 0)} rounds "
+                 f"over {st.get('left_ext_lanes', 0)} lanes (process 1: "
+                 f"{rows[1]['stats'].get('left_ext_rounds', 0)} over "
+                 f"{rows[1]['stats'].get('left_ext_lanes', 0)})"
+                 if "sharded" in name else "")
+              + f"; peak memory {rows[0]['peak_bytes'] / 2**30:.3f} / "
+              f"{rows[1]['peak_bytes'] / 2**30:.3f} GiB", flush=True)
     print(f"mesh: two processes on the one card (gloo, 2 x 2 shards): "
           f"matches_batch_sharded and the per-process map merge equal one "
-          f"process's digests ({time.perf_counter() - t:.1f}s with the "
-          f"children's start); phase 6c {time.perf_counter() - t6c:.1f}s",
-          flush=True)
+          f"process's digests, and the five full-width calls their twins "
+          f"(index saved in {t_save:.1f}s, loaded in "
+          f"{two_proc[0]['load_s']:.1f} / {two_proc[1]['load_s']:.1f}s; "
+          f"peak memory per process "
+          f"{max(c['peak_bytes'] for c in two_proc[0]['calls'].values()) / 2**30:.3f}"
+          f" / {max(c['peak_bytes'] for c in two_proc[1]['calls'].values()) / 2**30:.3f}"
+          f" GiB; {time.perf_counter() - t:.1f}s with the children's start); "
+          f"phase 6c {time.perf_counter() - t6c:.1f}s", flush=True)
 
     # ---- 6d. the single-core engine as the oracle at bench size: the
     # native map (native.map_e2e, one CPU core, the host index above)
@@ -2268,7 +2464,7 @@ def main() -> int:
     # to the host and MapOpts() maps them all, equal to the single-device
     # map_batch
     mesh42 = pmesh.make_mesh((4, 2), axis=("data", "model"), device="cuda:0")
-    d42_out, d42_stats, _ = sharded_run(
+    d42_out, d42_stats, d42_args = sharded_run(
         "map_batch_2d_sharded 4 x 2", lambda: pmesh.map_batch_2d_sharded(
             contigs, index, dopts(True), mesh42), 4, 2)
     if d42_out is None:
@@ -2283,21 +2479,29 @@ def main() -> int:
         raise SystemExit(f"FAIL map_batch_2d_sharded over 4 x 2 filled no "
                          f"gap through the search loop: {d42_stats}")
     # the kernels at the new per-shard shapes: a 2-D stage-1 shard (a data
-    # row's contigs against a quarter of the table), the index-sharded and
-    # the 2-D variant joins, derandomize_translate over a data row's block
-    ia, da = ish_args, d2_args
+    # row's contigs against a quarter of the table, over 4 x 2 against
+    # half), the index-sharded and the 2-D variant joins,
+    # derandomize_translate over a data row's block; the 4 x 2 grid's are
+    # also the two-process run's (phase 6c: the same grid over two
+    # processes)
+    ia, da, d42 = ish_args, d2_args, d42_args
     shard_shapes = {
         "model map variant join": ia["merge_path"][4],
         "2-D stage-1 shard": da["merge_path"][0],
         "2-D variant join": da["merge_path"][8],
+        "4 x 2 stage-1 shard": d42["merge_path"][0],
+        "4 x 2 variant join": d42["merge_path"][8],
     }
     shard_scans = {
         "model map variant join": ia["clamp_scan"][8],
         "2-D stage-1 shard": da["clamp_scan"][0],
         "2-D variant join": da["clamp_scan"][16],
+        "4 x 2 stage-1 shard": d42["clamp_scan"][0],
+        "4 x 2 variant join": d42["clamp_scan"][16],
     }
     shard_dt = {"model map postprocess": ia["derandomize_translate"][0],
-                "2-D data row": da["derandomize_translate"][0]}
+                "2-D data row": da["derandomize_translate"][0],
+                "4 x 2 data row": d42["derandomize_translate"][0]}
     for label, ops in shard_shapes.items():
         check("merge_path", f"{label} W={ops[0].shape[0]} "
               f"na={ops[0].shape[1]} nb={ops[2].shape[1]}",
@@ -2770,9 +2974,10 @@ def main() -> int:
                                                mesh=m),
          t_maps["MapOpts()", "batch"]),
     )
+    mesh_ms = {}
     for mname, m in meshes.items():
         for path, label, fn, twin in mesh_calls:
-            t_mesh = host_ms(lambda: fn(m))
+            t_mesh = mesh_ms[mname, path] = host_ms(lambda: fn(m))
             print(f"{tag} mesh {label} over {mname}: {t_mesh:.3f} ms; "
                   f"single-device {twin:.3f} ms; route "
                   f"{mesh_routes[path] or 'none (no routing)'}; launches "
@@ -2833,6 +3038,34 @@ def main() -> int:
           f"; map_batch_2d_sharded over 4 x 2 with MapOpts(): {t_42:.3f} ms; "
           f"the single-device map_batch {t_maps['MapOpts()', 'batch']:.3f} ms "
           f"(host clock, medians of {REPS})", flush=True)
+    # the two-process run's calls (phase 6c: each process's median of 3,
+    # both processes on the one card at once) beside one process over the
+    # same shards: merge_path and clamp_scan summed over the two processes
+    # beside one process's (the stages each process runs once count twice)
+    one_ms = {
+        "map_batch([genome])":
+            mesh_ms["4 shards on cuda:0", "map_batch mesh format=True"],
+        "map_batch 8 contigs":
+            mesh_ms["4 shards on cuda:0", "map_batch mesh 8 contigs"],
+        "call": mesh_ms["4 shards on cuda:0", "call mesh"],
+        "map_batch_index_sharded": t_ish,
+        "map_batch_2d_sharded 4 x 2": t_42,
+    }
+    for name, (_, lkey) in TWO_PROC_CALLS.items():
+        r0, r1 = (w["calls"][name] for w in two_proc)
+        both = {k: r0["launches"][k] + r1["launches"][k]
+                for k in ("merge_path", "clamp_scan")}
+        one = {k: launches[lkey][k] for k in both}
+        print(f"{tag} two processes on cuda:0, {name}: {r0['ms']:.3f} / "
+              f"{r1['ms']:.3f} ms (processes 0 / 1, host clock, medians of "
+              f"3); one process over the same shards {one_ms[name]:.3f} ms "
+              f"(median of {REPS}); dist_bytes "
+              f"{r0['stats'].get('dist_bytes', 0)} in "
+              f"{r0['stats'].get('dist_calls', 0)} calls, "
+              f"{r0['stats'].get('dist_s', 0) * 1e3:.3f} / "
+              f"{r1['stats'].get('dist_s', 0) * 1e3:.3f} ms; merge_path + "
+              f"clamp_scan over both processes {both}, one process {one}",
+              flush=True)
     sg_rest = sg_args[1:]
     lk_keys, lk_rest = le_args[0], le_args[1:4]
     stage_times = {
@@ -3231,7 +3464,9 @@ def main() -> int:
                  ("model matches shard", "matches_batch_index_sharded"),
                  ("model map variant join", "map_batch_index_sharded"),
                  ("2-D stage-1 shard", "map_batch_2d_sharded"),
-                 ("2-D variant join", "map_batch_2d_sharded")]
+                 ("2-D variant join", "map_batch_2d_sharded"),
+                 ("4 x 2 stage-1 shard", "map_batch_2d_sharded 4 x 2"),
+                 ("4 x 2 variant join", "map_batch_2d_sharded 4 x 2")]
     # name: (source, TPU kernel, (shape, path whose launches it reports),
     #        other (shape, path) pairs)
     sources = {
@@ -3275,7 +3510,8 @@ def main() -> int:
                if label in mesh_dt]
             + [("model matches shard", "matches_batch_index_sharded"),
                ("model map postprocess", "map_batch_index_sharded"),
-               ("2-D data row", "map_batch_2d_sharded")]),
+               ("2-D data row", "map_batch_2d_sharded"),
+               ("4 x 2 data row", "map_batch_2d_sharded 4 x 2")]),
         "bitonic_merge": ("bitonic.cu", "kbo_tpu/kernels/pallas_sort.py:178",
                           ("find-core", "ms2_core merge=bitonic"),
                           [("map", "ms3_rows_core merge=bitonic"),

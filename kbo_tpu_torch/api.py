@@ -171,7 +171,8 @@ def call(sbwt_query: SbwtIndex, ref_seq: bytes,
     its index on the host, as the reference does.
 
     With a ``data`` ``mesh`` the k-mer re-runs against the index shard over
-    it and the other phases run on its first device (no ``device`` then).
+    it and the other phases run on its first local device (no ``device``
+    then).
     """
     if mesh is not None:
         pmesh.require_data_axis(mesh, "call")
@@ -498,8 +499,8 @@ def _map_classic(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
     compaction run per shard
     (:func:`kbo_tpu_torch.parallel.mesh.map_sweep_compact_sharded`); the
     candidates are fetched from every shard at once, the chars, MS and
-    codes gathered onto the mesh's first device, where the rest runs, and
-    :func:`call` takes the mesh.
+    codes gathered onto the first local device (of every process), where
+    the rest runs, and :func:`call` takes the mesh.
     """
     k = query_sbwt.k
     threshold = derandomize.random_match_threshold(
@@ -510,7 +511,7 @@ def _map_classic(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
         dev = engine.device_index(query_sbwt, device)
         seq_lens = np.asarray([len(r) for r in ref_seqs], dtype=np.int32)
     else:
-        dev = pmesh.index_replicas(query_sbwt, mesh)[0]
+        dev = pmesh.index_replicas(query_sbwt, mesh)[mesh.local_shards[0]]
         codes, seq_lens = pmesh.pad_rows(
             *pipeline.pad_batch([encode_ascii(r) for r in ref_seqs], L),
             mesh.devices.size,
@@ -536,8 +537,7 @@ def _map_classic(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
                 query_sbwt, codes, seq_lens, threshold, mesh
             )
             codes_dev, chars_dev, ms_dev = (
-                pmesh.all_gather(mesh, [p[j] for p in parts])
-                for j in range(3)
+                pmesh.all_gather(mesh, pmesh.pick(parts, j)) for j in range(3)
             )
             ref_mat_dev = torch.from_numpy(ref_mat).to(dev.device)
 

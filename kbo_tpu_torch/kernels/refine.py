@@ -20,7 +20,10 @@
 Over a key table prefix-sharded on a model group (:class:`ShardedKeys3`)
 only what reads the table runs per shard: the row unpack, the membership
 probes and the left extension's searches; the rest runs once, on the
-group's first device.
+group's first device. A group may span processes: the shards of this
+process meet first, then the group's reducer (a ``sum`` / ``max`` pair,
+kbo_tpu_torch.parallel.mesh.ProcessReduce) combines the processes' parts;
+this module calls the reducer and nothing more.
 - :func:`seq_keys3_tagged_core` -- sorted, contig-tagged 3-bit window keys
   of the [Q, L] reference batch: the join table for the reference-k-mer
   re-runs (the reference's build-an-index-inside-call(), src/lib.rs:553,
@@ -120,30 +123,45 @@ def seq_keys3_tagged_rc(codes, k: int):
     return seq_keys3_tagged_core(with_revcomp_rows(codes), k)
 
 
+class LocalReduce:
+    """The reducer of a group that lies in one process: the identity."""
+
+    @staticmethod
+    def sum(x):
+        return x
+
+    max = sum
+
+
 class ShardedKeys3:
     """A colex key table prefix-sharded over a model group (the placement of
     kbo_tpu_torch.parallel.mesh.Sharded3Index): ``shards[i]`` int32 [W, m] is
     columns [i*m, (i+1)*m) of the table on its own device, all-ones past the
-    table's end. The refinement functions below take it where they take
-    ``keys3``: the row unpack, the membership probes and the left extension
-    run per shard on the shard's device and meet on the first shard's
-    device (a sum of the shards' disjoint contributions, or an OR), where
-    everything that does not read the table runs once.
+    table's end, or None when another process holds it. The refinement
+    functions below take it where they take ``keys3``: the row unpack, the
+    membership probes and the left extension run per local shard on the
+    shard's device and meet on the first local shard's device (a sum of
+    the shards' disjoint contributions, or an OR), then over the processes
+    through ``reduce`` (``sum`` / ``max``; :class:`LocalReduce` by
+    default), where everything that does not read the table runs once.
 
     Each shard's bucket table (:func:`bucket_table`, 8 MiB) is built at the
     first search and kept with the shard."""
 
-    def __init__(self, shards, m: int):
+    def __init__(self, shards, m: int, reduce=None):
         self.shards = list(shards)
+        self.local = [(i, s) for i, s in enumerate(self.shards)
+                      if s is not None]
         self.m = int(m)
-        self.device = self.shards[0].device
+        self.device = self.local[0][1].device
+        self.reduce = reduce or LocalReduce()
         self._tables = None
 
     def search_tables(self):
-        """(bucket table, search steps) per shard, on the shard's device."""
+        """(bucket table, search steps) per local shard, on its device."""
         if self._tables is None:
             self._tables = []
-            for s in self.shards:
+            for _, s in self.local:
                 with device_scope(s.device):
                     tbl = bucket_table(s)
                     self._tables.append((tbl, _bucket_steps(tbl, s.shape[1])))
@@ -166,22 +184,22 @@ def unpack_rows3(keys3, rows, k: int):
     27 - 3 (t % 10). Each key word is gathered once per row.
 
     Over a :class:`ShardedKeys3` the rows are GLOBAL: each shard gives its
-    in-range rows and zeros elsewhere, and the sum lands on the first
-    device. A row < 0 is then all zeros (no shard owns it), where the
-    single table gives row 0's k-mer; only what the callers compute from
-    them agrees."""
+    in-range rows and zeros elsewhere, and the sum lands on the first local
+    device (then over the processes). A row < 0 is then all zeros (no shard
+    owns it), where the single table gives row 0's k-mer; only what the
+    callers compute from them agrees."""
     if not isinstance(keys3, ShardedKeys3):
         return _unpack(keys3, torch.clamp(rows, min=0).to(torch.int64), k)
     m = keys3.m
     out = None
-    for i, shard in enumerate(keys3.shards):
+    for i, shard in keys3.local:
         with device_scope(shard.device):
             local = rows.to(shard.device).to(torch.int64) - i * m
             part = _unpack(shard, torch.clamp(local, 0, m - 1), k)
             part = torch.where(((local >= 0) & (local < m))[:, None], part, 0)
         part = part.to(keys3.device)
         out = part if out is None else out + part
-    return out
+    return keys3.reduce.sum(out)
 
 
 # ------------------------------------------------------------ the search loop
@@ -276,24 +294,29 @@ def _lower_bound_device(keys3, probe_words, tbl=None, steps=None):
 
 
 def _searches(keys3, tbl):
-    """(table, (bucket table, steps) or None) per shard of ``keys3``."""
+    """((table, (bucket table, steps) or None) per local shard of ``keys3``,
+    the reducer over the processes)."""
     if isinstance(keys3, ShardedKeys3):
-        return list(zip(keys3.shards, keys3.search_tables()))
+        return ([(s, tab) for (_, s), tab in zip(keys3.local,
+                                                  keys3.search_tables())],
+                keys3.reduce)
     if tbl is None:
-        return [(keys3, None)]
-    return [(keys3, (tbl, _bucket_steps(tbl, keys3.shape[1])))]
+        return [(keys3, None)], LocalReduce()
+    return [(keys3, (tbl, _bucket_steps(tbl, keys3.shape[1])))], LocalReduce()
 
 
 def _or_shards(searches, probe_words, fn):
-    """``fn(table, search table, probes)`` per shard on its device, ORed on
-    the probes' device (a row lives in at most one shard)."""
+    """``fn(table, search table, probes)`` per local shard on its device,
+    ORed on the probes' device (a row lives in at most one shard), then
+    over the processes (a bool max)."""
+    tables, reduce = searches
     out = None
-    for keys, tab in searches:
+    for keys, tab in tables:
         with device_scope(keys.device):
             part = fn(keys, tab, probe_words.to(keys.device))
         part = part.to(probe_words.device)
         out = part if out is None else out | part
-    return out
+    return reduce.max(out)
 
 
 def _member(keys, tab, pw):
@@ -357,6 +380,8 @@ def left_extend_device(keys3, kmers, budgets, k: int, tbl=None):
     until no lane is active, one host sync each (at most k rounds), and
     search only the active lanes; the rounds and the lanes that start
     active go to the run's stats (``left_ext_rounds``, ``left_ext_lanes``).
+    Over a group that spans processes every round's membership is reduced
+    over them first, so every process sees the same active lanes.
     Returns (exts uint8 [E, 2k] chunk codes, LEFT-aligned: char i of the
     extended string; ext_len int32 [E] = k + n_ext)."""
     E = kmers.shape[0]
@@ -429,6 +454,7 @@ def resolve_variants_core(
     d_lo: int = 0,
     seq_tables=None,
     merge: str = "path",
+    reduce=None,
 ):
     """Variant patches for every anchored MS drop, on the device.
 
@@ -437,9 +463,10 @@ def resolve_variants_core(
     stage (kernels/mapsweep.py), ``seq_words`` from
     :func:`seq_keys3_tagged_core`, or a list of such tables, one per
     position chunk of the sequence and each on its own device (the
-    sequence-sharded map, kbo_tpu_torch.parallel.mesh). Returns (patch_pos
-    int32 [S, k] flat q*L+i positions with Q*L = inert, patch_prio_val
-    int32 [S, k], n_variants int32 scalar) with S = Q*cap_d.
+    sequence-sharded map, kbo_tpu_torch.parallel.mesh; this process's
+    chunks, with ``reduce.max`` over the processes that hold the others).
+    Returns (patch_pos int32 [S, k] flat q*L+i positions with Q*L = inert,
+    patch_prio_val int32 [S, k], n_variants int32 scalar) with S = Q*cap_d.
 
     The query-k-mer MS re-run needs no join: the isolated k-mer's window at
     local offset i packs like the sweep's window at the underlying position,
@@ -529,6 +556,8 @@ def resolve_variants_core(
                                     meta.to(sw.device), 3, merge=merge)
             ct = ct.to(dev)
             c = ct if c is None else torch.maximum(c, ct)
+        if reduce is not None:
+            c = reduce.max(c)
     if Q > 1:
         c = torch.clamp(c - _TAG_PAD, min=0)
     msq = torch.clamp(c, max=k).reshape(S, kp)

@@ -2,19 +2,21 @@
 kbo_tpu/parallel/mesh.py).
 
 kbo_tpu's mesh is single-controller: one process drives every device
-through ``jax.shard_map``. So is this one: a :class:`Mesh` is a list of
-torch devices driven from one process, and a device may repeat (four shards
-on one card run every sharded path at real per-shard shapes).
+through ``jax.shard_map``. So is this one within a process: a
+:class:`Mesh` is a list of torch devices whose local ones one process
+drives, and a device may repeat (four shards on one card run every sharded
+path at real per-shard shapes).
 
 - Index tables are REPLICATED, one copy per distinct device
   (:func:`index_replicas`); query batches and sequences are SHARDED over the
   ``data`` axis: a sharded value is a list of per-shard tensors, shard i on
   ``mesh.devices[i]``.
-- Collectives are explicit copies onto the mesh's first device followed by
-  a torch reduction (:func:`all_gather`, :func:`psum`); on one card they are
-  device-local copies, on several peer copies.
-- A stage that kbo_tpu runs replicated on every device runs once, on the
-  first device, and its outputs are copied to the shards that read them.
+- Collectives are explicit copies onto the first local device followed by
+  a torch reduction (:func:`all_gather`, :func:`psum`, :func:`pmax`); on
+  one card they are device-local copies, on several peer copies.
+- A stage that kbo_tpu runs replicated on every device runs once (per
+  process), on the first local device, and its outputs are copied to the
+  shards that read them.
 - Each shard's work runs under its device (:func:`map_shards`), and every
   shard is launched before the first fetch to the host, so that cards run
   side by side.
@@ -22,9 +24,17 @@ on one card run every sharded path at real per-shard shapes).
   concatenate in shard order.
 
 Several processes (kbo_tpu_torch.parallel.distributed) form one global mesh
-of every process's local devices; each process runs its own shards and
-``gather_to_host`` fills in the rest. The collectives above need every
-shard in one process and raise otherwise.
+of every process's local devices, stacked along the first axis in rank
+order; each process runs its own shards, and every process passes the same
+inputs and gets the whole result back. The collectives combine this
+process's shards on its first local device, then meet the other processes
+over the gloo group (``distributed.all_gather`` / ``all_reduce``); their
+result lands on every process's first local device, the counterpart of a
+replicated ``shard_map`` output. A stage that runs once runs once per
+process there, over the gathered inputs, so every later step reads the
+same values in every process and every process makes the same collectives
+in the same order. A mesh over several processes without their process
+group raises ``RuntimeError``.
 
 A ``model`` axis splits the KEY TABLE instead (prefix-sharded placement,
 for an index larger than one card's memory): model shard j holds a
@@ -40,6 +50,8 @@ are called directly.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -99,7 +111,9 @@ class Mesh:
     dimension per axis (a device may repeat), ``axis_names`` the axis
     names, ``shape`` {axis: size}, as on a ``jax.sharding.Mesh``. In a
     multi-process run the devices are every process's, in rank order, and
-    ``local_shards`` are this process's (flat indices, row-major).
+    ``local_shards`` are this process's (flat indices, row-major): on a 2-D
+    mesh whole rows, so a model group never spans processes (ValueError
+    otherwise).
     """
 
     def __init__(self, devices, axis_names=("data",), process_count: int = 1,
@@ -125,8 +139,20 @@ class Mesh:
         self.shape = dict(zip(axis_names, map(int, devices.shape)))
         self.process_count = process_count
         per = devices.size // process_count
+        if devices.ndim == 2 and per % devices.shape[1]:
+            raise ValueError(
+                f"a {devices.shape[0]} x {devices.shape[1]} mesh over "
+                f"{process_count} processes would split a model group "
+                f"across processes: each process holds whole rows"
+            )
         self.local_shards = range(process_index * per,
                                   (process_index + 1) * per)
+
+    @property
+    def first_local(self) -> torch.device:
+        """This process's first device: where the combined results of the
+        collectives and the stages that run once land."""
+        return self.devices.flat[self.local_shards[0]]
 
 
 def make_mesh(n_devices=None, axis="data", device=None) -> Mesh:
@@ -135,12 +161,14 @@ def make_mesh(n_devices=None, axis="data", device=None) -> Mesh:
     sizes (both at once: ``make_mesh((2, 4), axis=("data", "model"),
     device="cuda:0")``).
 
-    ``device`` None or ``"cuda"``: the first visible cards, as many as the
-    mesh has shards (all of them by default for one axis); raises when
-    there are fewer, or none. A single named device (``"cuda:0"``,
-    ``"cpu"``): every shard on that one device (``n_devices`` required). In
-    a multi-process run these are this process's devices, and the mesh
-    holds every process's, in rank order along the first axis.
+    ``device`` None or ``"cuda"``: this process's own block of the visible
+    cards (:func:`local_cards`), as many as the mesh has shards (for one
+    axis by default all the cards of the block); raises when that block is
+    not visible, or there is no card. A single named device (``"cuda:0"``,
+    ``"cpu"``): every shard on that one device (``n_devices`` required),
+    in every process that names it. In a multi-process run these are this
+    process's devices, and the mesh holds every process's, in rank order
+    along the first axis.
     """
     axes = (axis,) if isinstance(axis, str) else tuple(axis)
     if axes not in _AXES:
@@ -154,16 +182,7 @@ def make_mesh(n_devices=None, axis="data", device=None) -> Mesh:
     n_devices = n_devices if grid is None else grid[0] * grid[1]
     dev = None if device is None else torch.device(device)
     if dev is None or (dev.type == "cuda" and dev.index is None):
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "make_mesh: no CUDA device; make_mesh(n, device='cpu') puts "
-                "n shards on the CPU"
-            )
-        count = torch.cuda.device_count()
-        n = count if n_devices is None else n_devices
-        if not 1 <= n <= count:
-            raise ValueError(f"make_mesh: {n} cards asked, {count} visible")
-        local = [torch.device("cuda", i) for i in range(n)]
+        local = local_cards(n_devices)
     else:
         if n_devices is None or n_devices < 1:
             raise ValueError(
@@ -183,6 +202,31 @@ def make_mesh(n_devices=None, axis="data", device=None) -> Mesh:
     if grid is not None:
         devices = devices.reshape(n_proc * grid[0], grid[1])
     return Mesh(devices, axes, n_proc, distributed.process_index())
+
+
+def local_cards(n_devices=None) -> list[torch.device]:
+    """This process's own cards: block ``LOCAL_RANK`` (torchrun's; 0 when
+    unset) of n visible cards, ``cuda:LOCAL_RANK*n`` to
+    ``cuda:(LOCAL_RANK+1)*n - 1``. n is ``n_devices``, by default the
+    visible cards over ``LOCAL_WORLD_SIZE`` (1 when unset). Raises when the
+    block is not visible, so that no process takes another's card unless
+    it names it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_mesh: no CUDA device; make_mesh(n, device='cpu') puts "
+            "n shards on the CPU"
+        )
+    count = torch.cuda.device_count()
+    rank = int(os.environ.get("LOCAL_RANK", 0))
+    n = (count // int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+         if n_devices is None else n_devices)
+    if n < 1 or (rank + 1) * n > count:
+        raise ValueError(
+            f"make_mesh: local rank {rank} takes cards {rank * n} to "
+            f"{(rank + 1) * n - 1}, {count} visible; name a device "
+            f"(device='cuda:0') to share one"
+        )
+    return [torch.device("cuda", rank * n + i) for i in range(n)]
 
 
 # ------------------------------------------------------------- placement
@@ -252,7 +296,7 @@ def index_replicas(index, mesh: Mesh):
     per shard: one :class:`DeviceIndex` per distinct device, kept on the
     index for the mesh's devices.
 
-    The first device takes the engine's own tables for it
+    The first local device takes the engine's own tables for it
     (``engine.device_index``), which the stages run there read too; the
     other devices' copies are this layer's, so a mesh of many cards does
     not cycle the engine's five-entry cache."""
@@ -274,41 +318,79 @@ def index_replicas(index, mesh: Mesh):
 # ----------------------------------------------------------- collectives
 
 
-def _one_process(mesh: Mesh, what: str):
-    if mesh.process_count > 1:
-        raise NotImplementedError(
-            f"{what} needs every shard in one process: across processes only "
-            f"host results meet (distributed.gather_to_host)"
-        )
+def pick(parts, j: int):
+    """Item j of each shard's tuple of outputs (None for another process's
+    shards)."""
+    return [None if p is None else p[j] for p in parts]
+
+
+def _fold(fn, parts, dst):
+    out = parts[0].to(dst)
+    for p in parts[1:]:
+        out = fn(out, p.to(dst))
+    return out
+
+
+def _local(mesh: Mesh, parts):
+    return [parts[i] for i in mesh.local_shards]
+
+
+def across(mesh: Mesh, x: torch.Tensor, op: str) -> torch.Tensor:
+    """``x`` (this process's part, on its first local device) reduced by
+    ``op`` (``"sum"`` / ``"max"``) over the mesh's processes: the identity
+    in one process."""
+    if mesh.process_count == 1:
+        return x
+    distributed.require_group(mesh.process_count)
+    return distributed.all_reduce(x, op)
+
+
+class ProcessReduce:
+    """The reducer that kernels.refine hands a sharded value's per-process
+    part to (a ShardedKeys3's unpack, membership ORs and extension, the
+    sequence-sharded variant join's max): ``sum`` / ``max`` over the mesh's
+    processes, the identity in one process."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return across(self.mesh, x, "sum")
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return across(self.mesh, x, "max")
 
 
 def all_gather(mesh: Mesh, parts, dim: int = 0) -> torch.Tensor:
-    """The shards' tensors on the mesh's first device, concatenated along
-    ``dim`` in shard order."""
-    _one_process(mesh, "all_gather")
-    dst = mesh.devices[0]
-    return torch.cat([p.to(dst) for p in parts], dim=dim)
+    """The shards' tensors (one per shard, None for another process's)
+    concatenated along ``dim`` in shard order, on the first local device
+    of every process: this process's shards first, then the processes'
+    blocks in rank order (global shard i is process i // per's local
+    shard i % per)."""
+    out = torch.cat([p.to(mesh.first_local) for p in _local(mesh, parts)],
+                    dim=dim)
+    if mesh.process_count == 1:
+        return out
+    distributed.require_group(mesh.process_count)
+    return distributed.all_gather(out, dim)
 
 
 def psum(mesh: Mesh, parts) -> torch.Tensor:
-    """The elementwise sum of the shards' tensors, on the first device."""
-    _one_process(mesh, "psum")
-    dst = mesh.devices[0]
-    out = parts[0].to(dst)
-    for p in parts[1:]:
-        out = out + p.to(dst)
-    return out
+    """The elementwise sum of the shards' tensors (integers: exact in any
+    order), on the first local device of every process."""
+    return across(mesh, _fold(torch.add, _local(mesh, parts),
+                              mesh.first_local), "sum")
 
 
 def pmax(mesh: Mesh, parts, dst=None) -> torch.Tensor:
-    """The elementwise maximum of the shards' tensors, on the first device
-    (or on ``dst``: a model group's first device)."""
-    _one_process(mesh, "pmax")
-    dst = mesh.devices.flat[0] if dst is None else dst
-    out = parts[0].to(dst)
-    for p in parts[1:]:
-        out = torch.maximum(out, p.to(dst))
-    return out
+    """The elementwise maximum of the shards' tensors (one per shard, None
+    for another process's), on the first local device of every process.
+    With ``dst`` (a model group's first device) ``parts`` are that group's,
+    all in this process, and no process collective runs."""
+    if dst is not None:
+        return _fold(torch.maximum, parts, dst)
+    return across(mesh, _fold(torch.maximum, _local(mesh, parts),
+                              mesh.first_local), "max")
 
 
 def require_data_axis(mesh: Mesh, what: str) -> None:
@@ -501,7 +583,7 @@ def map_sweep_compact_sharded(index, codes: np.ndarray, lengths: np.ndarray,
 #
 #   stage 1  the 3-bit rows join per chunk with k-1 real left context
 #            (exact, as kernels.mapsweep.ms3_rows_sweep_chunked), the dense
-#            (ms, uniq, rows) all-gathered onto the first device;
+#            (ms, uniq, rows) all-gathered onto the first local device;
 #   stage 2  derandomize/translate and the candidate compaction run once
 #            there (the derandomize scan and gap runs cross chunk edges);
 #   stage 3  gap scoring splits the CANDIDATE SLOTS over the shards (each
@@ -526,17 +608,16 @@ class _SeqShardedDev:
 
 def _seqsh_stage1(holder: _SeqShardedDev, L: int):
     """Stage 1: each shard's chunk joined with its k-1 context codes; the
-    dense (ms, uniq, rows) [Q, L] gathered onto the first device."""
+    dense (ms, uniq, rows) [Q, L] gathered along dim 1 onto the first local
+    device of every process."""
     k = holder.k
     parts = map_shards(
         holder.seq_mesh,
         lambda dv, cc: _ms3_rows_chunk(dv.keys3, dv.rows_packed, cc, k),
         holder.replicas, holder.ctx_chunks,
     )
-    return tuple(
-        all_gather(holder.seq_mesh, [p[j] for p in parts], dim=1)[:, :L]
-        for j in range(3)
-    )
+    return tuple(all_gather(holder.seq_mesh, pick(parts, j), dim=1)[:, :L]
+                 for j in range(3))
 
 
 def seqsh_score_gaps(holder: _SeqShardedDev, ref_mat, lengths, gap_start,
@@ -547,7 +628,8 @@ def seqsh_score_gaps(holder: _SeqShardedDev, ref_mat, lengths, gap_start,
     its replica of the key table and extension table (the reference matrix
     and lengths copied to it). The patch grids gather (their order does not
     matter to the scatter-max assembly), ``needs_host`` is laid back into
-    the [Q * cap_g] slot order, the counters sum."""
+    the [Q * cap_g] slot order, the counters sum; across processes too, so
+    that every process holds all of them."""
     mesh = holder.seq_mesh
     nd = mesh.shape["data"]
     Q = gap_start.shape[0]
@@ -572,11 +654,11 @@ def seqsh_score_gaps(holder: _SeqShardedDev, ref_mat, lengths, gap_start,
     parts = map_shards(mesh, shard, range(nd), holder.replicas,
                        replicate(mesh, ref_mat), replicate(mesh, lengths))
     needs_host = all_gather(
-        mesh, [p[2].reshape(Q, cap_gl) for p in parts], dim=1
+        mesh, [None if p is None else p[2].reshape(Q, cap_gl) for p in parts],
+        dim=1,
     )[:, :cap_g].reshape(-1)
-    return (all_gather(mesh, [p[0] for p in parts]),
-            all_gather(mesh, [p[1] for p in parts]),
-            needs_host, psum(mesh, [p[3] for p in parts]))
+    return (all_gather(mesh, pick(parts, 0)), all_gather(mesh, pick(parts, 1)),
+            needs_host, psum(mesh, pick(parts, 3)))
 
 
 def seqsh_resolve_variants(holder: _SeqShardedDev, codes, ref_mat, ms,
@@ -586,14 +668,16 @@ def seqsh_resolve_variants(holder: _SeqShardedDev, codes, ref_mat, ms,
     table SEQUENCE-SHARDED: each shard sorts only its chunk's tagged window
     keys (chunk + k-1 real context) on its own device, the probes join each
     and the best is maxed over the shards (exact: every true window lies in
-    one chunk; a context-region duplicate can only score lower). The rest
-    runs once, on the first device."""
-    tables = map_shards(holder.seq_mesh,
-                        lambda cc: seq_keys3_tagged_core(cc, k),
+    one chunk; a context-region duplicate can only score lower), this
+    process's chunks first, then over the processes. The rest runs once
+    (per process), on the first local device."""
+    mesh = holder.seq_mesh
+    tables = map_shards(mesh, lambda cc: seq_keys3_tagged_core(cc, k),
                         holder.ctx_chunks)
     return resolve_variants_core(
-        holder.replicas[0].keys3, tables, codes, ref_mat, ms, lengths,
-        drop_pos, apos, arow, d, k, cap_d, d_lo=d_lo,
+        holder.replicas[mesh.local_shards[0]].keys3, _local(mesh, tables),
+        codes, ref_mat, ms, lengths, drop_pos, apos, arow, d, k, cap_d,
+        d_lo=d_lo, reduce=ProcessReduce(mesh),
     )
 
 
@@ -615,7 +699,6 @@ def map_seq_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
     if not ref_seqs:
         return []
     mesh = mesh or make_mesh()
-    _one_process(mesh, "the sequence-sharded map")
     nd = mesh.shape["data"]
     k = query_sbwt.k
     if opts.call_variants and (k != opts.sbwt_build_opts.k
@@ -648,8 +731,8 @@ def map_seq_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
     ref_mat = ref_matrix(ref_seqs, Q, L)
 
     holder = _SeqShardedDev(index_replicas(query_sbwt, mesh), k, mesh,
-                            [c[0] for c in shard_rows(mesh, cc)])
-    d0 = mesh.devices[0]
+                            pick(shard_rows(mesh, cc), 0))
+    d0 = mesh.first_local
     codes_dev = torch.from_numpy(codes).to(d0)
     lengths_dev = torch.from_numpy(lengths).to(d0)
     ref_mat_dev = torch.from_numpy(ref_mat).to(d0)
@@ -753,11 +836,15 @@ class Sharded3Index:
     grid reads model shard j on ``devices[i, j]``, so a 2 x 4 mesh on one
     card holds four shards, not eight.
 
-    ``keys3`` / ``down`` / ``up`` are lists per model shard (the first data
-    row's); :meth:`tables` gives data row i's (keys3, down, up) per shard
-    and :meth:`group` its keys as a kernels.refine.ShardedKeys3, the
-    refinement's view. ``shard_cols`` is m, ``shard_bytes`` the bytes one
-    shard's tensors hold.
+    Across processes each process places only its own shards (None for
+    another process's): the model shards of a one-axis ``model`` mesh, or
+    the rows of a 2-D mesh that it holds.
+
+    ``keys3`` / ``down`` / ``up`` are lists per model shard (the first local
+    data row's, ``first_row``); :meth:`tables` gives data row i's (keys3,
+    down, up) per shard and :meth:`group` its keys as a
+    kernels.refine.ShardedKeys3, the refinement's view. ``shard_cols`` is m,
+    ``shard_bytes`` the bytes one shard's tensors hold.
     """
 
     def __init__(self, index, mesh: Mesh):
@@ -791,8 +878,9 @@ class Sharded3Index:
 
         self._rows = [[place(i, j) for j in range(n_model)]
                       for i in range(grid.shape[0])]
+        self.first_row = mesh.local_shards[0] // n_model
         self.keys3, self.down, self.up = (
-            [p and p[t] for p in self._rows[0]] for t in range(3))
+            pick(self._rows[self.first_row], t) for t in range(3))
         self.shard_cols = m = -(-n // n_model)
         self.shard_bytes = m * (keys3.shape[0] * 4 + 2)
         self.n_rows = int(index.n_rows)
@@ -800,28 +888,35 @@ class Sharded3Index:
         self.model_mesh = mesh
         self._groups: dict = {}
 
-    def tables(self, i: int = 0):
-        """Data row i's (keys3, down, up) per model shard."""
-        return self._rows[i]
+    def tables(self, i: int | None = None):
+        """Data row i's (keys3, down, up) per model shard (by default the
+        first local row's)."""
+        return self._rows[self.first_row if i is None else i]
 
-    def group(self, i: int = 0) -> ShardedKeys3:
-        """Data row i's key shards as a ShardedKeys3; data rows on the same
-        devices share one (and its bucket tables)."""
-        shards = [p[0] for p in self._rows[i]]
+    def group(self, i: int | None = None) -> ShardedKeys3:
+        """Data row i's key shards as a ShardedKeys3 (by default the first
+        local row's); data rows on the same devices share one (and its
+        bucket tables). The model group of a one-axis ``model`` mesh may
+        span processes: its ShardedKeys3 then reduces over them."""
+        shards = pick(self.tables(i), 0)
         key = tuple(id(s) for s in shards)
         if key not in self._groups:
-            self._groups[key] = ShardedKeys3(shards, self.shard_cols)
+            self._groups[key] = ShardedKeys3(
+                shards, self.shard_cols, ProcessReduce(self.model_mesh)
+                if self.model_mesh.axis_names == ("model",) else None)
         return self._groups[key]
 
 
 def _group_rows_join(sidx: Sharded3Index, i: int, codes):
     """(ms, uniq, rows) [Q, L] of a code batch (host array or tensor)
-    against model group i of the sharded table: every shard's partial join
-    (kernels.ms.ms3_rows_partial_core, row offset j * m) over the query
-    buffer copied to its device, one pmax for each pack and the finish on
-    the group's first device."""
+    against model group i of the sharded table: every local shard's partial
+    join (kernels.ms.ms3_rows_partial_core, row offset j * m) over the query
+    buffer copied to its device, one pmax for each pack (over the processes
+    too when the group is a one-axis ``model`` mesh that spans them) and
+    the finish on the group's first local device."""
     shards = sidx.tables(i)
-    first = shards[0][0].device
+    local = [(j, t) for j, t in enumerate(shards) if t is not None]
+    first = local[0][1][0].device
     k = sidx.k
     if not isinstance(codes, torch.Tensor):
         codes = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.uint8))
@@ -831,14 +926,16 @@ def _group_rows_join(sidx: Sharded3Index, i: int, codes):
     buf = torch.cat([pad, codes], dim=1).reshape(-1)
     copies = {str(first): buf}
     m = sidx.shard_cols
-    packs = []
-    for j, (k3, dn, up) in enumerate(shards):
+    packs = [None] * len(shards)
+    for j, (k3, dn, up) in local:
         b = copies.setdefault(str(k3.device), buf.to(k3.device))
         with device_scope(k3.device):
-            packs.append(ms3_rows_partial_core(k3, dn, up, j * m, b, k))
+            packs[j] = ms3_rows_partial_core(k3, dn, up, j * m, b, k)
     mesh = sidx.model_mesh
-    fp = pmax(mesh, [p[0] for p in packs], first)
-    bp = pmax(mesh, [p[1] for p in packs], first)
+    if mesh.axis_names == ("model",):
+        fp, bp = (pmax(mesh, pick(packs, t)) for t in range(2))
+    else:
+        fp, bp = (pmax(mesh, pick(packs, t), first) for t in range(2))
     with device_scope(first):
         ms, uniq, rows = ms3_rows_from_packed(fp, bp, sidx.n_rows, k)
     stride = L + k - 1
@@ -849,7 +946,7 @@ def ms3_rows_sweep_index_sharded(sidx: Sharded3Index, codes, mesh: Mesh):
     """(ms, uniq, rows) [Q, L] of a code batch (host array or tensor)
     against the SHARDED key table of a one-axis ``model`` mesh: every
     shard's partial join over the replicated query buffer, one pmax for
-    each pack, the finish on the first device. Equal to
+    each pack, the finish on the first local device. Equal to
     kernels.mapsweep.ms3_rows_sweep's outputs; rows where uniq holds."""
     _model_shards(mesh)
     return _group_rows_join(sidx, 0, codes)
@@ -858,12 +955,11 @@ def ms3_rows_sweep_index_sharded(sidx: Sharded3Index, codes, mesh: Mesh):
 def sharded_score_gaps(sidx: Sharded3Index, ref_mat, lengths, gap_start,
                        gap_end_at, grid, threshold: int, bound: float, k: int,
                        cap_ge: int, cap_ext: int):
-    """kernels.refine.score_gaps_core over the sharded table (data row 0's
-    model group): the candidate k-mer unpacks sum the shards' rows, and the
-    left extension's searches run per shard with an OR (the search loop);
-    the rest runs once on the group's first device, where the inputs
-    live."""
-    _one_process(sidx.model_mesh, "the sharded gap scoring")
+    """kernels.refine.score_gaps_core over the sharded table (the first
+    local data row's model group): the candidate k-mer unpacks sum the
+    shards' rows, and the left extension's searches run per shard with an
+    OR (the search loop); the rest runs once on the group's first local
+    device, where the inputs live."""
     return score_gaps_core(sidx.group(), ref_mat, lengths, gap_start,
                            gap_end_at, grid, threshold, k, cap_ge, cap_ext,
                            None, bound)
@@ -872,11 +968,11 @@ def sharded_score_gaps(sidx: Sharded3Index, ref_mat, lengths, gap_start,
 def sharded_resolve_variants(sidx: Sharded3Index, seq_words, codes, ref_mat,
                              ms, lengths, drop_pos, apos, arow, d: int,
                              k: int, cap_d: int, d_lo: int = 0):
-    """kernels.refine.resolve_variants_core over the sharded table (data row
-    0's model group): the reference k-mer unpack sums the shards' rows; the
-    rk-vs-sequence join runs once on the group's first device (it joins
-    against the SEQUENCE keys ``seq_words``, not the index)."""
-    _one_process(sidx.model_mesh, "the sharded variant resolution")
+    """kernels.refine.resolve_variants_core over the sharded table (the
+    first local data row's model group): the reference k-mer unpack sums
+    the shards' rows; the rk-vs-sequence join runs once on the group's
+    first local device (it joins against the SEQUENCE keys ``seq_words``,
+    not the index)."""
     return resolve_variants_core(sidx.group(), seq_words, codes, ref_mat,
                                  ms, lengths, drop_pos, apos, arow, d, k,
                                  cap_d, d_lo=d_lo)
@@ -922,7 +1018,6 @@ def map_batch_index_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
         return []
     mesh = mesh or make_mesh(axis="model")
     _model_shards(mesh)
-    _one_process(mesh, "the index-sharded map")
     k = query_sbwt.k
     threshold, code_list, codes, lengths = _sharded_map_setup(
         ref_seqs, query_sbwt, opts, "the index-sharded map")
@@ -932,7 +1027,7 @@ def map_batch_index_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
                          f"limits at k={k}")
     sidx = Sharded3Index(query_sbwt, mesh)
     ref_mat = ref_matrix(ref_seqs, Q, L)
-    d0 = mesh.devices[0]
+    d0 = mesh.first_local
     codes_dev = torch.from_numpy(codes).to(d0)
     lengths_dev = torch.from_numpy(lengths).to(d0)
     ref_mat_dev = torch.from_numpy(ref_mat).to(d0)
@@ -965,9 +1060,9 @@ def matches_batch_index_sharded(index, code_list: list[np.ndarray],
     ``cap2`` split over the ``model`` shards (all-ones keys and cap 0 past
     the table: such rows add nothing to the clamped-LCP scan), each shard's
     ms2_core over the replicated buffer, one pmax, then derandomize and
-    translate once on the first device (kernels.postprocess.
-    derandomize_translate). Returns uint8 chars per query, equal to
-    pipeline.matches_batch's."""
+    translate once (per process) on the first local device
+    (kernels.postprocess.derandomize_translate). Returns uint8 chars per
+    query, equal to pipeline.matches_batch's."""
     mesh = mesh or make_mesh(axis="model")
     _model_shards(mesh)
     if index.keys2 is None:
@@ -986,7 +1081,7 @@ def matches_batch_index_sharded(index, code_list: list[np.ndarray],
         keys2, cap2, _replicated_buffer(mesh, codes, k),
     )
     ms = pmax(mesh, parts)
-    d0 = mesh.devices[0]
+    d0 = mesh.first_local
     with device_scope(d0):
         chars = derandomize_translate(
             ms, k, int(threshold), torch.from_numpy(lengths).to(d0))
@@ -997,33 +1092,45 @@ def matches_batch_index_sharded(index, code_list: list[np.ndarray],
 # ----------------------------- 2-D placement: data x model at once
 
 
+def _local_rows(mesh: Mesh) -> range:
+    """The data rows of a 2-D mesh that this process holds."""
+    n_model = mesh.shape["model"]
+    return range(mesh.local_shards[0] // n_model,
+                 mesh.local_shards[-1] // n_model + 1)
+
+
 def _stage1_2d(sidx: Sharded3Index, codes_p):
-    """The dense (ms, uniq, rows) of each data row's contig block against its
-    model group (:func:`_group_rows_join`: a partial join per (data, model)
-    shard, pmax over ``model`` only), on the group's first device."""
-    return [_group_rows_join(sidx, i, c) for i, c in enumerate(codes_p)]
+    """The dense (ms, uniq, rows) of each local data row's contig block
+    against its model group (:func:`_group_rows_join`: a partial join per
+    (data, model) shard, pmax over ``model`` only), on the group's first
+    device (None for another process's rows)."""
+    return [None if c is None else _group_rows_join(sidx, i, c)
+            for i, c in enumerate(codes_p)]
 
 
 def _stage2_2d(sidx: Sharded3Index, codes_p, ref_p, len_p, sweep_p,
                threshold: int, bound: float, k: int, opts, cap_d: int,
                cap_g: int, cap_ext: int, cap_r: int) -> np.ndarray:
-    """refine.device_map.devref_core per data row with its model group's
-    sharded table (the search loop's left extension, no chain table: it
-    syncs once a round); the delta blocks [n_data, 4, cap_r] are fetched
-    together after the last row."""
+    """refine.device_map.devref_core per local data row with its model
+    group's sharded table (the search loop's left extension, no chain
+    table: it syncs once a round); the delta blocks [n_data, 4, cap_r] are
+    fetched together after the last row, the processes' rows meeting in
+    distributed.gather_to_host."""
     from kbo_tpu_torch.refine.device_map import devref_core
 
-    blocks = []
-    for i, (co, rm, le, sw) in enumerate(zip(codes_p, ref_p, len_p, sweep_p)):
+    mesh = sidx.model_mesh
+    blocks = [None] * len(codes_p)
+    for i in _local_rows(mesh):
+        co, rm, le, sw = codes_p[i], ref_p[i], len_p[i], sweep_p[i]
         with device_scope(co.device):
-            blocks.append(devref_core(
+            blocks[i] = devref_core(
                 sidx.group(i), co, rm, le, *sw, threshold, k, cap_d, cap_g,
                 cap_ext, cap_r, bool(opts.fill_gaps),
                 bool(opts.call_variants), bool(opts.format),
                 d_lo=max(threshold - 1, 0), w_grid=max(k - threshold + 1, 1),
                 ext_tab=None, bound=bound,
-            )[0])
-    return np.stack([b.cpu().numpy() for b in blocks])
+            )[0][None]
+    return gather_to_host(mesh, blocks, _local_rows(mesh))
 
 
 def map_batch_2d_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
@@ -1045,7 +1152,6 @@ def map_batch_2d_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
     if mesh is None or mesh.axis_names != ("data", "model"):
         raise ValueError("map_batch_2d_sharded needs a ('data', 'model') "
                          "mesh (make_mesh((d, m), axis=('data', 'model')))")
-    _one_process(mesh, "the 2-D map")
     k = query_sbwt.k
     threshold, code_list, codes, lengths = _sharded_map_setup(
         ref_seqs, query_sbwt, opts, "the 2-D map")
@@ -1059,10 +1165,13 @@ def map_batch_2d_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
     sidx = Sharded3Index(query_sbwt, mesh)
     ref_mat = ref_matrix(ref_seqs, Q, L)
 
+    local = _local_rows(mesh)
+
     def blocks_of(arr):
+        """This process's rows' blocks of ``arr`` (None for another's)."""
         return [torch.from_numpy(np.ascontiguousarray(
             arr[i * q_per : (i + 1) * q_per])).to(mesh.devices[i, 0])
-            for i in range(nd)]
+            if i in local else None for i in range(nd)]
 
     codes_p, ref_p, len_p = (blocks_of(a) for a in (codes, ref_mat, lengths))
     bound = prob_bound(opts.max_error_prob)

@@ -180,10 +180,13 @@ def test_replica_of_a_device_built_index_moves_its_tables():
 
 
 def test_collectives_need_one_process():
+    """A collective over a mesh of two processes needs their process group:
+    without one it raises, naming initialize_from_env, and never computes a
+    one-process answer."""
     m = tmesh.Mesh([torch.device("cpu")] * 4, process_count=2,
                    process_index=1)
     assert list(m.local_shards) == [2, 3]
-    with pytest.raises(NotImplementedError, match="one process"):
+    with pytest.raises(RuntimeError, match="initialize_from_env"):
         tmesh.all_gather(m, [torch.zeros(1)] * 4)
 
 

@@ -104,8 +104,9 @@ def test_map_seq_sharded_rules(built):
     with pytest.raises(ValueError, match="forward strand"):
         tmesh.map_seq_sharded([ref], t_idx, rc,
                               mesh=tmesh.make_mesh(3, device="cpu"))
+    # two processes without their process group
     two = tmesh.Mesh([torch.device("cpu")] * 4, process_count=2)
-    with pytest.raises(NotImplementedError, match="one process"):
+    with pytest.raises(RuntimeError, match="initialize_from_env"):
         tmesh.map_seq_sharded([ref], t_idx, t_mo, mesh=two)
     with pytest.raises(ValueError, match="no device"):
         tapi.map_batch([ref], t_idx, t_mo, device="cpu",

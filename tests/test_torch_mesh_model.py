@@ -277,15 +277,17 @@ def test_sharded_memory_footprint():
 
 
 def test_model_mesh_rules():
-    """pmax is the elementwise max on the first device and raises across
-    processes; the prefix-sharded functions refuse a data mesh."""
+    """pmax is the elementwise max on the first device, and across two
+    processes without their process group it raises naming
+    initialize_from_env; the prefix-sharded functions refuse a data
+    mesh."""
     tm = tmesh.make_mesh(3, axis="model", device="cpu")
     parts = [torch.tensor([1, 5, -2]), torch.tensor([4, 0, -3]),
              torch.tensor([2, 2, -1])]
     got = tmesh.pmax(tm, parts)
     assert got.tolist() == [4, 5, -1] and got.device == tm.devices[0]
     two = tmesh.Mesh([torch.device("cpu")] * 4, ("model",), process_count=2)
-    with pytest.raises(NotImplementedError, match="pmax needs every shard"):
+    with pytest.raises(RuntimeError, match="initialize_from_env"):
         tmesh.pmax(two, parts)
     t_idx, _ = _indexes([b"ACGTTGCAAGGCTTACG" * 4], 5)
     dm = tmesh.make_mesh(2, device="cpu")
