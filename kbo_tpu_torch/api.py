@@ -125,9 +125,9 @@ def find_batch(query_seqs: list[bytes], sbwt, find_opts: FindOpts | None = None,
     threshold = derandomize.random_match_threshold(
         sbwt.k, sbwt.n_kmers, 4, opts.max_error_prob
     )
-    code_list = [encode_ascii(bytes(q)) for q in query_seqs]
-    total = sum(c.size for c in code_list)
-    with stage("find_batch", bases=total):
+    with stage("find_batch", bases=sum(len(q) for q in query_seqs)):
+        with stage("find_encode"):
+            code_list = [encode_ascii(bytes(q)) for q in query_seqs]
         if seq_index and opts.max_gap_len == 0:
             return pipeline.find_rle_batch_seq(sbwt, code_list, threshold)
         if seq_index:
@@ -282,7 +282,11 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
     host pass only for gaps whose left extensions exceed the device budgets
     (refine/gap_filling.py). The output is fetched as run-length deltas
     against the reference and painted on the host (kernels/mapsweep.py,
-    refine/device_map.py).
+    refine/device_map.py). The host clock of each step goes to the run's
+    stats: ``map_upload`` (the pipelined chunked sweep runs inside it),
+    ``map_sweep`` (with its bases), ``map_postprocess``, then those of
+    :func:`~kbo_tpu_torch.refine.device_map.map_devref_finish`;
+    ``map_overflow_retries`` counts the capacity retries.
 
     Every other batch (k >= 128, or too many contigs for the rows join)
     takes :func:`_map_classic`: the 2-bit sweep and the host refinement
@@ -323,38 +327,40 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
     threshold = derandomize.random_match_threshold(
         k, query_sbwt.n_kmers, 4, opts.max_error_prob
     )
-    ref_mat = _ref_matrix(ref_seqs, L)
-    lengths_dev = torch.from_numpy(seq_lens).to(dev.device)
+    # optimistic capacities: only a denser-than-expected input pays a
+    # second pass. Drops (SNP sites) run ~1/kb on same-species pairs;
+    # gap runs are rarer and cost more per slot in the refinement
+    cap_d = _pow2_cap(L // 1024)
+    cap_g = _pow2_cap(L // 1536, lo=256)
 
-    with stage("map_sweep", bases=int(seq_lens.sum())):
-        # optimistic capacities: only a denser-than-expected input pays a
-        # second pass. Drops (SNP sites) run ~1/kb on same-species pairs;
-        # gap runs are rarer and cost more per slot in the refinement
-        cap_d = _pow2_cap(L // 1024)
-        cap_g = _pow2_cap(L // 1536, lo=256)
-
-        # single-contig maps reuse the sweep's sorted query window keys as
-        # the variant join's table (kernels/refine.py resolve_variants_core
-        # ``seq_tables``); revcomp inner indexes and Q > 1 sort their own
-        want_qt = (
-            opts.call_variants and Q == 1
-            and not opts.sbwt_build_opts.add_revcomp
-        )
+    # single-contig maps reuse the sweep's sorted query window keys as
+    # the variant join's table (kernels/refine.py resolve_variants_core
+    # ``seq_tables``); revcomp inner indexes and Q > 1 sort their own
+    want_qt = (
+        opts.call_variants and Q == 1
+        and not opts.sbwt_build_opts.add_revcomp
+    )
+    with stage("map_upload"):
+        ref_mat = _ref_matrix(ref_seqs, L)
+        lengths_dev = torch.from_numpy(seq_lens).to(dev.device)
         pipelined = None
         if chunk:
             # the chunked sweep packs and ships chunk by chunk, so the host
-            # packs chunk c + 1 while the card sweeps chunk c
+            # packs chunk c + 1 while the card sweeps chunk c: the sweep
+            # runs inside this span
             pipelined = mapsweep.upload_sweep_chunked_pipelined(
                 dev.keys3, dev.rows_packed, ref_mat, seq_lens, k, chunk,
                 want_qtable=want_qt,
             )
-        if pipelined is not None:
-            (ref_mat_dev, codes_dev, ms_dev, uniq_dev, rows_dev,
-             seq_tables) = pipelined
-        else:
+        if pipelined is None:
             ref_mat_dev, codes_dev = _upload(ref_mat, seq_lens, lengths_dev)
-            # the join stage is cap-independent: the capacity-overflow
-            # retry below re-runs only the postprocess stage
+    if pipelined is not None:
+        (ref_mat_dev, codes_dev, ms_dev, uniq_dev, rows_dev,
+         seq_tables) = pipelined
+    else:
+        # the join stage is cap-independent: the capacity-overflow retry
+        # below re-runs only the postprocess stage
+        with stage("map_sweep", bases=int(seq_lens.sum())):
             if chunk:
                 out = mapsweep.ms3_rows_sweep_chunked(
                     dev.keys3, dev.rows_packed, codes_dev, k, chunk,
@@ -365,29 +371,31 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
                     dev.keys3, dev.rows_packed, codes_dev, k,
                     want_qtable=want_qt,
                 )
-            ms_dev, uniq_dev, rows_dev = out[:3]
-            seq_tables = out[3] if want_qt else None
+        ms_dev, uniq_dev, rows_dev = out[:3]
+        seq_tables = out[3] if want_qt else None
 
-        # the gap-candidate window never exceeds k - threshold + 1
-        # positions (mapsweep.map_postprocess3_core docstring)
-        w_grid = max(k - threshold + 1, 1)
-        while True:
+    # the gap-candidate window never exceeds k - threshold + 1
+    # positions (mapsweep.map_postprocess3_core docstring)
+    w_grid = max(k - threshold + 1, 1)
+    while True:
+        with stage("map_postprocess"):
             chars_dev, packed_dev, pieces = mapsweep.map_postprocess3_core(
                 ms_dev, uniq_dev, rows_dev, lengths_dev, k, threshold,
                 cap_d, cap_g, w_grid,
             )
-            try:
-                return map_devref_finish(
-                    dev, codes_dev, lengths_dev, ms_dev, chars_dev, pieces,
-                    packed_dev, ref_seqs, query_sbwt, opts, threshold,
-                    cap_d, cap_g, total_gap_slack=cap_g * 2 + 64,
-                    ref_mat=ref_mat, ref_mat_dev=ref_mat_dev,
-                    seq_tables=seq_tables,
-                )
-            except DevRefOverflow as o:
-                # grow only the overflowed capacity
-                cap_d = max(cap_d, _pow2_cap(o.need_d))
-                cap_g = max(cap_g, _pow2_cap(o.need_g))
+        try:
+            return map_devref_finish(
+                dev, codes_dev, lengths_dev, ms_dev, chars_dev, pieces,
+                packed_dev, ref_seqs, query_sbwt, opts, threshold,
+                cap_d, cap_g, total_gap_slack=cap_g * 2 + 64,
+                ref_mat=ref_mat, ref_mat_dev=ref_mat_dev,
+                seq_tables=seq_tables,
+            )
+        except DevRefOverflow as o:
+            # grow only the overflowed capacity
+            get_stats().add("map_overflow_retries")
+            cap_d = max(cap_d, _pow2_cap(o.need_d))
+            cap_g = max(cap_g, _pow2_cap(o.need_g))
 
 
 def _map_batch_mesh(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,

@@ -46,6 +46,7 @@ from kbo_tpu_torch.kernels.sort import (
     to_i32,
     u32,
 )
+from kbo_tpu_torch.utils.stats import stage
 
 INVALID = 255
 _BIG = 2**31 - 1
@@ -844,19 +845,22 @@ class DeviceSeqIndex:
                  device=None):
         if not seqs:
             raise ValueError("cannot build an index from empty input")
-        parts = []
-        sep = np.array([INVALID], dtype=np.uint8)
-        for s in seqs:
-            s = bytes(s)
-            parts += [encode_ascii(s), sep]
-            if add_revcomp:
-                parts += [encode_ascii(revcomp_ascii(s)), sep]
-        buf, _ = make_flat_buffer(np.concatenate(parts[:-1]), k)
+        with stage("build_pack"):
+            parts = []
+            sep = np.array([INVALID], dtype=np.uint8)
+            for s in seqs:
+                s = bytes(s)
+                parts += [encode_ascii(s), sep]
+                if add_revcomp:
+                    parts += [encode_ascii(revcomp_ascii(s)), sep]
+            buf, _ = make_flat_buffer(np.concatenate(parts[:-1]), k)
         self.device = resolve_device(device)
-        self.ref_words, n_kmers = _seq_keys3(
-            torch.from_numpy(buf).to(self.device), k
-        )
-        self.n_kmers = int(n_kmers)
+        with stage("build_sort"):
+            self.ref_words, n_kmers = _seq_keys3(
+                torch.from_numpy(buf).to(self.device), k
+            )
+        with stage("build_fetch"):
+            self.n_kmers = int(n_kmers)
         self.k = k
 
 
@@ -956,33 +960,39 @@ class DeviceFullIndex(DeviceIndex):
     the device, the text sliced on the host). Its tables carry a sentinel
     tail after ``n_rows`` (see :func:`_build_full_core`). The rank
     bitvectors are never built: no query path of the device execution
-    reads them. Only the six metadata scalars cross to the host.
+    reads them. Only the six metadata scalars cross to the host. The host
+    clock of the build goes to the run's stats: ``build_pack`` (the text
+    made on the host), ``build_sort`` (its upload and the sorts' launches)
+    and ``build_fetch`` (the scalars), as for :class:`DeviceSeqIndex`.
     """
 
     def __init__(self, seqs: list[bytes], k: int, add_revcomp: bool = False,
                  device=None):
         assert 1 < k < 64
-        parts = []
-        for s in seqs:
-            s = bytes(s)
-            segs = split_segments(encode_ascii(s))
-            if add_revcomp:
-                segs += split_segments(encode_ascii(revcomp_ascii(s)))
-            for seg in segs:
-                parts.append(np.zeros(k, dtype=np.uint8))
-                parts.append(seg)
-        assert parts, "cannot build an index from empty input"
-        text = np.concatenate(parts)
-        buf = np.full(_bucket(text.size), INVALID, dtype=np.uint8)
-        buf[: text.size] = text
+        with stage("build_pack"):
+            parts = []
+            for s in seqs:
+                s = bytes(s)
+                segs = split_segments(encode_ascii(s))
+                if add_revcomp:
+                    segs += split_segments(encode_ascii(revcomp_ascii(s)))
+                for seg in segs:
+                    parts.append(np.zeros(k, dtype=np.uint8))
+                    parts.append(seg)
+            assert parts, "cannot build an index from empty input"
+            text = np.concatenate(parts)
+            buf = np.full(_bucket(text.size), INVALID, dtype=np.uint8)
+            buf[: text.size] = text
         self.device = resolve_device(device)
         # the tables are plain attributes here, where DeviceIndex uploads
         # keys3 at its first read; lcs3 and rows_packed stay lazy
-        self.keys3, self.row_pos, self.keys2, self.cap2, meta = (
-            _build_full_core(torch.from_numpy(buf).to(self.device), k)
-        )
+        with stage("build_sort"):
+            self.keys3, self.row_pos, self.keys2, self.cap2, meta = (
+                _build_full_core(torch.from_numpy(buf).to(self.device), k)
+            )
         self.text = text  # host copy of the construction buffer
-        meta = meta.cpu().numpy()
+        with stage("build_fetch"):
+            meta = meta.cpu().numpy()
         self.n_rows = int(meta[0])
         self.n_kmers = int(meta[1])
         self.C = meta[2:6].astype(np.int32)

@@ -7,6 +7,11 @@ round trips between stages. MS comes from the sort-join engine
 (kbo_tpu_torch.kernels.ms): the 2-bit join against an index, or the 3-bit
 join against a device-built sequence index (``*_seq``);
 derandomize/translate/RLE from kbo_tpu_torch.kernels.postprocess.
+
+The host clock of each step goes to the run's stats: ``find_pack`` (pad
+and upload), ``find_join`` (the join and derandomize_translate launches),
+``find_fetch`` (each device-to-host fetch) and ``find_rle`` (the segment
+lists built on the host).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from kbo_tpu_torch.kernels.postprocess import (
     rle_segments_global_core,
 )
 from kbo_tpu_torch.ops.format import RLE
+from kbo_tpu_torch.utils.stats import get_stats, stage
 
 
 def _flat_ms_to_batch(ms_flat, Q: int, L: int, k: int):
@@ -107,12 +113,14 @@ def _run_pipeline(index, code_list, threshold: int, device):
     from kbo_tpu_torch.engine import device_index
 
     dev = device_index(index, device)
-    codes, lengths = pad_batch(code_list, bucket=True)
-    lengths_dev = torch.from_numpy(lengths).to(dev.device)
-    chars, ms = matches_pipeline_core(
-        dev.keys2, dev.cap2, torch.from_numpy(codes).to(dev.device),
-        lengths_dev, dev.k, threshold,
-    )
+    with stage("find_pack"):
+        codes, lengths = pad_batch(code_list, bucket=True)
+        lengths_dev = torch.from_numpy(lengths).to(dev.device)
+        codes_dev = torch.from_numpy(codes).to(dev.device)
+    with stage("find_join"):
+        chars, ms = matches_pipeline_core(
+            dev.keys2, dev.cap2, codes_dev, lengths_dev, dev.k, threshold,
+        )
     return chars, ms, lengths_dev
 
 
@@ -133,7 +141,8 @@ def matches_batch(index: SbwtIndex, code_list: list[np.ndarray],
     """Translated alignment chars (uint8 arrays) for a batch of queries;
     the ms output stays on the device."""
     chars, _ms, _ = _run_pipeline(index, code_list, threshold, device)
-    chars = chars.cpu().numpy()
+    with stage("find_fetch"):
+        chars = chars.cpu().numpy()
     return [chars[i, : c.size] for i, c in enumerate(code_list)]
 
 
@@ -168,14 +177,18 @@ def _rle_structs_global(vec: np.ndarray, q_rows: int, cap_total: int):
 def _rle_from_device_chars(chars_dev, lengths_dev):
     """Device chars [Q, L] -> RLE lists via the global segment table: one
     flat counts+table fetch sized by the true total segment count
-    (capacity-quadrupling retry)."""
+    (capacity-quadrupling retry, counted as ``find_rle_retries``)."""
     Q, L = chars_dev.shape
     cap = _bucket(max(128, 2 * Q), lo=128)
     while True:
-        vec = rle_segments_global_core(chars_dev, lengths_dev, cap)
-        out = _rle_structs_global(vec.cpu().numpy(), Q, cap)
+        with stage("find_fetch"):
+            vec = rle_segments_global_core(chars_dev, lengths_dev, cap)
+            vec = vec.cpu().numpy()
+        with stage("find_rle"):
+            out = _rle_structs_global(vec, Q, cap)
         if out is not None:
             return out
+        get_stats().add("find_rle_retries")
         cap = min(cap * 4, Q * ((L + 1) // 2 + 1))
 
 
@@ -190,14 +203,17 @@ def find_rle_batch(index: SbwtIndex, code_list: list[np.ndarray],
 def _run_pipeline_seq(dev_index, code_list, threshold: int):
     """chars [Q, L] and lengths on the device against a
     :class:`kbo_tpu_torch.kernels.ms.DeviceSeqIndex`."""
-    codes, lengths = pad_batch(code_list, bucket=True)
-    lengths_dev = torch.from_numpy(lengths).to(dev_index.device)
-    ms = ms3_values_vs_sorted_seq_core(
-        dev_index.ref_words, torch.from_numpy(codes).to(dev_index.device),
-        dev_index.k,
-    )
-    return derandomize_translate(ms, dev_index.k, threshold, lengths_dev), \
-        lengths_dev
+    with stage("find_pack"):
+        codes, lengths = pad_batch(code_list, bucket=True)
+        lengths_dev = torch.from_numpy(lengths).to(dev_index.device)
+        codes_dev = torch.from_numpy(codes).to(dev_index.device)
+    with stage("find_join"):
+        ms = ms3_values_vs_sorted_seq_core(
+            dev_index.ref_words, codes_dev, dev_index.k
+        )
+        chars = derandomize_translate(ms, dev_index.k, threshold,
+                                      lengths_dev)
+    return chars, lengths_dev
 
 
 def matches_batch_seq(dev_index, code_list: list[np.ndarray],
@@ -205,7 +221,8 @@ def matches_batch_seq(dev_index, code_list: list[np.ndarray],
     """Translated alignment chars (uint8 arrays) for a batch of queries
     against a device-built sequence index (the index-free find path)."""
     chars, _ = _run_pipeline_seq(dev_index, code_list, threshold)
-    chars = chars.cpu().numpy()
+    with stage("find_fetch"):
+        chars = chars.cpu().numpy()
     return [chars[i, : c.size] for i, c in enumerate(code_list)]
 
 

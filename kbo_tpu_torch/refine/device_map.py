@@ -49,7 +49,7 @@ from kbo_tpu_torch.kernels.refine import (
 )
 from kbo_tpu_torch.pipeline import pad_batch
 from kbo_tpu_torch.refine import gap_filling
-from kbo_tpu_torch.utils.stats import get_stats
+from kbo_tpu_torch.utils.stats import get_stats, stage
 
 
 class DevRefOverflow(Exception):
@@ -139,110 +139,124 @@ def map_devref_finish(
     Returns the list of output byte strings. Raises :class:`DevRefOverflow`
     when the candidate capacities were too small (the caller re-runs the
     postprocess stage).
+
+    The host clock of each step goes to the run's stats: ``map_devref``
+    (the refinement and assembly launches), ``map_fetch`` (the delta fetch,
+    and the exact-size re-assembly with its re-fetch), ``map_host_gaps``
+    (the host gap pass, its re-assembly and its re-fetch) and
+    ``map_paint``.
     """
     k = dev.k
     Q, L = codes_dev.shape
     device = chars_dev.device
     fmt = bool(opts.format)
 
-    pos_grids: list = []
-    pv_grids: list = []
-    n_var_dev = torch.zeros((), dtype=torch.int32, device=device)
-    gap_counters_dev = torch.zeros(3, dtype=torch.int32, device=device)
-    needs_host_dev = None
-    cap_ge = cap_g  # device gap scoring covers every compacted slot
-    # extension lanes scale with the TOTAL gap count across contigs: about
-    # 2 lanes per gap on SNP-dense inputs (4x headroom here); an overflow
-    # flags the owning gaps to the host evaluator, so undersizing costs a
-    # host pass, not correctness
-    cap_ext = _pow2_cap(max(4 * cap_g, 32 * Q), lo=256)
-    # a sequence-sharded holder (parallel.mesh._SeqShardedDev) splits the
-    # gap slots and the variant join's sequence table over its mesh; a
-    # prefix-sharded index (parallel.mesh.Sharded3Index) reads its table by
-    # shard (the unpacks, and the search loop for the left extension)
-    seq_mesh = getattr(dev, "seq_mesh", None)
-    model_mesh = getattr(dev, "model_mesh", None)
-    if seq_mesh is not None or model_mesh is not None:
-        from kbo_tpu_torch.parallel import mesh as pmesh
-    if opts.fill_gaps:
-        gap_args = (
-            ref_mat_dev, lengths_dev, pieces["gap_start"],
-            pieces["gap_end_at"], pieces["grid"], threshold,
-        )
-        bound = prob_bound(opts.max_error_prob)
-        if seq_mesh is not None:
-            gpos, gpv, needs_host_dev, gap_counters_dev = \
-                pmesh.seqsh_score_gaps(dev, *gap_args, bound, k, cap_ge,
-                                       cap_ext)
-        elif model_mesh is not None:
-            gpos, gpv, needs_host_dev, gap_counters_dev = \
-                pmesh.sharded_score_gaps(dev, *gap_args, bound, k, cap_ge,
-                                         cap_ext)
-        else:
-            gpos, gpv, needs_host_dev, gap_counters_dev = score_gaps_core(
-                dev.keys3, *gap_args, k, cap_ge, cap_ext, get_ext_table(dev),
-                bound,
+    with stage("map_devref"):
+        pos_grids: list = []
+        pv_grids: list = []
+        n_var_dev = torch.zeros((), dtype=torch.int32, device=device)
+        gap_counters_dev = torch.zeros(3, dtype=torch.int32, device=device)
+        needs_host_dev = None
+        cap_ge = cap_g  # device gap scoring covers every compacted slot
+        # extension lanes scale with the TOTAL gap count across contigs:
+        # about 2 lanes per gap on SNP-dense inputs (4x headroom here); an
+        # overflow flags the owning gaps to the host evaluator, so
+        # undersizing costs a host pass, not correctness
+        cap_ext = _pow2_cap(max(4 * cap_g, 32 * Q), lo=256)
+        # a sequence-sharded holder (parallel.mesh._SeqShardedDev) splits
+        # the gap slots and the variant join's sequence table over its mesh;
+        # a prefix-sharded index (parallel.mesh.Sharded3Index) reads its
+        # table by shard (the unpacks, and the search loop for the left
+        # extension)
+        seq_mesh = getattr(dev, "seq_mesh", None)
+        model_mesh = getattr(dev, "model_mesh", None)
+        if seq_mesh is not None or model_mesh is not None:
+            from kbo_tpu_torch.parallel import mesh as pmesh
+        if opts.fill_gaps:
+            gap_args = (
+                ref_mat_dev, lengths_dev, pieces["gap_start"],
+                pieces["gap_end_at"], pieces["grid"], threshold,
             )
-        pos_grids.append(gpos)
-        pv_grids.append(gpv)
-    if opts.call_variants and seq_mesh is not None:
-        vpos, vpv, n_var_dev = pmesh.seqsh_resolve_variants(
-            dev, codes_dev, ref_mat_dev, ms_dev, lengths_dev,
-            pieces["drop_pos"], pieces["apos"], pieces["arow"], threshold, k,
-            cap_d, d_lo=max(int(threshold) - 1, 0),
-        )
-        pos_grids.append(vpos)
-        pv_grids.append(vpv)
-    elif opts.call_variants and model_mesh is not None:
-        vpos, vpv, n_var_dev = pmesh.sharded_resolve_variants(
-            dev, seq_keys3_tagged_core(codes_dev, k), codes_dev, ref_mat_dev,
-            ms_dev, lengths_dev, pieces["drop_pos"], pieces["apos"],
-            pieces["arow"], threshold, k, cap_d,
-            d_lo=max(int(threshold) - 1, 0),
-        )
-        pos_grids.append(vpos)
-        pv_grids.append(vpv)
-    elif opts.call_variants:
-        seq_words = None
-        if seq_tables is None:
-            # the reference's inner sequence index reuses the BuildOpts
-            # (src/lib.rs:553): with add_revcomp it holds both strands
-            if opts.sbwt_build_opts.add_revcomp:
-                seq_words = seq_keys3_tagged_rc(codes_dev, k)
+            bound = prob_bound(opts.max_error_prob)
+            if seq_mesh is not None:
+                gpos, gpv, needs_host_dev, gap_counters_dev = \
+                    pmesh.seqsh_score_gaps(dev, *gap_args, bound, k, cap_ge,
+                                           cap_ext)
+            elif model_mesh is not None:
+                gpos, gpv, needs_host_dev, gap_counters_dev = \
+                    pmesh.sharded_score_gaps(dev, *gap_args, bound, k, cap_ge,
+                                             cap_ext)
             else:
-                seq_words = seq_keys3_tagged_core(codes_dev, k)
-        vpos, vpv, n_var_dev = resolve_variants_core(
-            dev.keys3, seq_words, codes_dev, ref_mat_dev, ms_dev, lengths_dev,
-            pieces["drop_pos"], pieces["apos"], pieces["arow"], threshold, k,
-            cap_d, d_lo=max(int(threshold) - 1, 0), seq_tables=seq_tables,
-        )
-        pos_grids.append(vpos)
-        pv_grids.append(vpv)
+                gpos, gpv, needs_host_dev, gap_counters_dev = score_gaps_core(
+                    dev.keys3, *gap_args, k, cap_ge, cap_ext,
+                    get_ext_table(dev), bound,
+                )
+            pos_grids.append(gpos)
+            pv_grids.append(gpv)
+        if opts.call_variants and seq_mesh is not None:
+            vpos, vpv, n_var_dev = pmesh.seqsh_resolve_variants(
+                dev, codes_dev, ref_mat_dev, ms_dev, lengths_dev,
+                pieces["drop_pos"], pieces["apos"], pieces["arow"], threshold,
+                k, cap_d, d_lo=max(int(threshold) - 1, 0),
+            )
+            pos_grids.append(vpos)
+            pv_grids.append(vpv)
+        elif opts.call_variants and model_mesh is not None:
+            vpos, vpv, n_var_dev = pmesh.sharded_resolve_variants(
+                dev, seq_keys3_tagged_core(codes_dev, k), codes_dev,
+                ref_mat_dev, ms_dev, lengths_dev, pieces["drop_pos"],
+                pieces["apos"], pieces["arow"], threshold, k, cap_d,
+                d_lo=max(int(threshold) - 1, 0),
+            )
+            pos_grids.append(vpos)
+            pv_grids.append(vpv)
+        elif opts.call_variants:
+            seq_words = None
+            if seq_tables is None:
+                # the reference's inner sequence index reuses the BuildOpts
+                # (src/lib.rs:553): with add_revcomp it holds both strands
+                if opts.sbwt_build_opts.add_revcomp:
+                    seq_words = seq_keys3_tagged_rc(codes_dev, k)
+                else:
+                    seq_words = seq_keys3_tagged_core(codes_dev, k)
+            vpos, vpv, n_var_dev = resolve_variants_core(
+                dev.keys3, seq_words, codes_dev, ref_mat_dev, ms_dev,
+                lengths_dev, pieces["drop_pos"], pieces["apos"],
+                pieces["arow"], threshold, k, cap_d,
+                d_lo=max(int(threshold) - 1, 0), seq_tables=seq_tables,
+            )
+            pos_grids.append(vpos)
+            pv_grids.append(vpv)
 
-    # Optimistic run budget: ~1 delta run per variant site (L/1024 slots)
-    # + a quarter of the gap slack + flanks; an underestimate pays one
-    # exactly-sized re-assembly below.
-    cap_r = _pow2_cap(int(L // 1024 + total_gap_slack // 4 + 256))
-    assembled = assemble_map_prio_core(
-        chars_dev, ref_mat_dev, lengths_dev, pos_grids, pv_grids, fmt, cap_r
-    )
-    counts = pieces["counts"]
-    zero = torch.zeros(1, dtype=torch.int32, device=device)
-    extras_dev = torch.cat(
-        [
-            counts[:, 0].max()[None],  # 0: max drops per contig
-            counts[:, 1].max()[None],  # 1: max gap runs per contig
-            # 2: gaps needing the host evaluator
-            zero if needs_host_dev is None
-            else needs_host_dev.sum(dtype=torch.int32)[None],
-            gap_counters_dev,  # 3, 4, 5: gaps_seen, gaps_filled, unfilled
-            n_var_dev[None],  # 6: variants resolved
-            pieces["clamped_gap"].sum(dtype=torch.int32)[None],  # 7
-        ]
-    )
+        # Optimistic run budget: ~1 delta run per variant site (L/1024
+        # slots) + a quarter of the gap slack + flanks; an underestimate
+        # pays one exactly-sized re-assembly below.
+        cap_r = _pow2_cap(int(L // 1024 + total_gap_slack // 4 + 256))
+        assembled = assemble_map_prio_core(
+            chars_dev, ref_mat_dev, lengths_dev, pos_grids, pv_grids, fmt,
+            cap_r,
+        )
+        counts = pieces["counts"]
+        zero = torch.zeros(1, dtype=torch.int32, device=device)
+        extras_dev = torch.cat(
+            [
+                counts[:, 0].max()[None],  # 0: max drops per contig
+                counts[:, 1].max()[None],  # 1: max gap runs per contig
+                # 2: gaps needing the host evaluator
+                zero if needs_host_dev is None
+                else needs_host_dev.sum(dtype=torch.int32)[None],
+                # 3, 4, 5: gaps_seen, gaps_filled, unfilled
+                gap_counters_dev,
+                n_var_dev[None],  # 6: variants resolved
+                pieces["clamped_gap"].sum(dtype=torch.int32)[None],  # 7
+            ]
+        )
 
     # ONE fetch: delta runs + counters + fallback indicators together.
-    delta = fetch_delta_runs_extras(*assembled, extras_dev, cap_r).cpu().numpy()
+    with stage("map_fetch"):
+        delta = fetch_delta_runs_extras(
+            *assembled, extras_dev, cap_r
+        ).cpu().numpy()
     n_runs = int(delta[3, 0])
     extras = delta[3, 2:10]
     max_d, max_g, n_need_host = int(extras[0]), int(extras[1]), int(extras[2])
@@ -265,21 +279,37 @@ def map_devref_finish(
         # the packed candidate block + flags, score those gaps on the host
         # FROM THE DEVICE GRID (the host extension walks the host index's
         # own keys), re-assemble with the extra patches, re-fetch.
-        extra_pos, extra_pv, extra_unfilled = _host_gap_patches(
-            needs_host_dev, packed_dev, pieces, ref_seqs, query_sbwt, opts,
-            threshold, cap_d, cap_g, cap_ge, L, n_need_host,
-        )
-        stats.add("gap_bases_unfilled", extra_unfilled)
-        if extra_pos:
-            ep = np.concatenate(extra_pos)
-            ev = np.concatenate(extra_pv)
-            cap_p = _pow2_cap(ep.size, lo=64)
-            ep_pad = np.full(cap_p, Q * L, dtype=np.int32)
-            ev_pad = np.zeros(cap_p, dtype=np.int32)
-            ep_pad[: ep.size] = ep
-            ev_pad[: ev.size] = ev
-            pos_grids.append(torch.from_numpy(ep_pad).to(device))
-            pv_grids.append(torch.from_numpy(ev_pad).to(device))
+        with stage("map_host_gaps"):
+            extra_pos, extra_pv, extra_unfilled = _host_gap_patches(
+                needs_host_dev, packed_dev, pieces, ref_seqs, query_sbwt, opts,
+                threshold, cap_d, cap_g, cap_ge, L, n_need_host,
+            )
+            stats.add("gap_bases_unfilled", extra_unfilled)
+            if extra_pos:
+                ep = np.concatenate(extra_pos)
+                ev = np.concatenate(extra_pv)
+                cap_p = _pow2_cap(ep.size, lo=64)
+                ep_pad = np.full(cap_p, Q * L, dtype=np.int32)
+                ev_pad = np.zeros(cap_p, dtype=np.int32)
+                ep_pad[: ep.size] = ep
+                ev_pad[: ev.size] = ev
+                pos_grids.append(torch.from_numpy(ep_pad).to(device))
+                pv_grids.append(torch.from_numpy(ev_pad).to(device))
+                assembled = assemble_map_prio_core(
+                    chars_dev, ref_mat_dev, lengths_dev, pos_grids, pv_grids,
+                    fmt, cap_r,
+                )
+                delta = (
+                    fetch_delta_runs_extras(*assembled, extras_dev, cap_r)
+                    .cpu().numpy()
+                )
+                n_runs = int(delta[3, 0])
+
+    if n_runs > cap_r:
+        # run arrays are emitted capped, so an undersized budget re-runs
+        # the (cheap) assembly at the exact size before refetching
+        cap_r = _pow2_cap(n_runs)
+        with stage("map_fetch"):
             assembled = assemble_map_prio_core(
                 chars_dev, ref_mat_dev, lengths_dev, pos_grids, pv_grids, fmt,
                 cap_r,
@@ -288,29 +318,18 @@ def map_devref_finish(
                 fetch_delta_runs_extras(*assembled, extras_dev, cap_r)
                 .cpu().numpy()
             )
-            n_runs = int(delta[3, 0])
-
-    if n_runs > cap_r:
-        # run arrays are emitted capped, so an undersized budget re-runs
-        # the (cheap) assembly at the exact size before refetching
-        cap_r = _pow2_cap(n_runs)
-        assembled = assemble_map_prio_core(
-            chars_dev, ref_mat_dev, lengths_dev, pos_grids, pv_grids, fmt, cap_r
-        )
-        delta = (
-            fetch_delta_runs_extras(*assembled, extras_dev, cap_r).cpu().numpy()
-        )
         n_runs = int(delta[3, 0])
 
-    canvas, row_lens = _canvas(ref_seqs, Q, L, fmt, ref_mat)
-    _paint_runs(
-        canvas, delta[0, :n_runs], delta[1, :n_runs], delta[2, :n_runs],
-        L, row_lens,
-    )
-    return [
-        canvas[q * L : q * L + row_lens[q]].tobytes()
-        for q in range(len(ref_seqs))
-    ]
+    with stage("map_paint"):
+        canvas, row_lens = _canvas(ref_seqs, Q, L, fmt, ref_mat)
+        _paint_runs(
+            canvas, delta[0, :n_runs], delta[1, :n_runs], delta[2, :n_runs],
+            L, row_lens,
+        )
+        return [
+            canvas[q * L : q * L + row_lens[q]].tobytes()
+            for q in range(len(ref_seqs))
+        ]
 
 
 def _host_gap_patches(needs_host_dev, packed_dev, pieces, ref_seqs,

@@ -167,7 +167,8 @@ def _left_extend_batch(
     K0 == k match at most one row, so each round is a batched binary
     search against the packed colex keys (no rank loops); K0 != k falls
     back to rank probes. Returns the extended code arrays
-    (length K0 + e_lane).
+    (length K0 + e_lane). Each round (one batched probe; a host sync on a
+    device-built index) counts in the run's stats as ``host_ext_rounds``.
     """
     kmers = np.asarray(kmers, dtype=np.uint8)
     E, K0 = kmers.shape
@@ -198,7 +199,9 @@ def _left_extend_batch(
     prepended: list[list[int]] = [[] for _ in range(E)]
     active = budgets > 0
     spent = np.zeros(E, dtype=np.int64)
+    stats = get_stats()
     while active.any():
+        stats.add("host_ext_rounds")
         lanes = np.flatnonzero(active)
         P = prefix[lanes]
         probes = np.empty((4, lanes.size, K0), dtype=np.uint8)

@@ -168,7 +168,8 @@ def call_variants(
     re-runs join against the sequence's own window keys). ``device`` is the
     device of the joins (None: the CUDA card). The host clock of each phase
     goes to the run's stats (``call_drops``, ``call_anchors`` with the
-    ``call_anchor_rounds`` counter, ``call_kmer_joins``,
+    ``call_anchor_rounds`` counter and, inside it, ``call_anchor_fetch``
+    around the rounds' interval reads, ``call_kmer_joins``,
     ``call_resolve``); the first three end in a fetch, so they include
     their device work.
     """
@@ -280,8 +281,9 @@ def _anchors(sbwt_ref, codes, n: int, k: int, d: int, drops, ms, ivals,
             if pos.size == 0:
                 break
             get_stats().add("call_anchor_rounds")
-            iv = ivals.get_batch(pos)
-            msb = ivals.get_ms_batch(pos)
+            with stage("call_anchor_fetch"):
+                iv = ivals.get_batch(pos)
+                msb = ivals.get_ms_batch(pos)
             ok_at = (msb >= d) & (iv[:, 1] - iv[:, 0] == 1)
             loc = np.searchsorted(pos, np.minimum(j, pos[-1]))
             good = (
@@ -317,7 +319,9 @@ def _anchors(sbwt_ref, codes, n: int, k: int, d: int, drops, ms, ivals,
     if pre_rows is not None:
         return sites, anchor[sel], pre_rows[sel]
     if ivals is not None:
-        return sites, anchor[sel], ivals.get_batch(anchor[sel])[:, 0]
+        with stage("call_anchor_fetch"):
+            rows = ivals.get_batch(anchor[sel])[:, 0]
+        return sites, anchor[sel], rows
     return sites, anchor[sel], cand_iv[np.searchsorted(cand, anchor[sel]), 0]
 
 

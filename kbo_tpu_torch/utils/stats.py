@@ -7,8 +7,13 @@ for CLI/batch consumers, and an optional ``torch.profiler`` trace context
 for device-level profiling.
 
 Counters are process-global and cheap (plain dict increments); they are
-always collected. ``as_dict`` derives rates (bases/s per stage) from the
-recorded totals.
+always collected. While a ``torch.profiler`` records, each :func:`stage` is
+also a ``record_function`` span: a ``user_annotation`` in the Chrome trace,
+on the clock of the kernels and copies it launched.
+
+A stage times host work and launches; one named ``*_fetch`` times a
+device-to-host fetch, so its host time is device work the host could not
+hide. Stages wrap the waits that are there and add none.
 """
 
 from __future__ import annotations
@@ -17,6 +22,9 @@ import contextlib
 import json
 import threading
 import time
+
+from torch.autograd import profiler as _profiler
+from torch.profiler import record_function
 
 
 class RunStats:
@@ -37,9 +45,6 @@ class RunStats:
         out: dict = dict(self.counters)
         for key, secs in self.timers.items():
             out[f"{key}_s"] = round(secs, 6)
-            bases = self.counters.get(f"{key}_bases")
-            if bases and secs > 0:
-                out[f"{key}_bases_per_s"] = round(bases / secs)
         return out
 
     def dump_json(self) -> str:
@@ -60,7 +65,12 @@ def reset_stats() -> None:
 
 @contextlib.contextmanager
 def stage(name: str, bases: int | None = None):
-    """Time a pipeline stage; optionally record its base count for rates."""
+    """Time a pipeline stage (``<name>_s``, ``<name>_calls``; with
+    ``bases``, ``<name>_bases``). Under a recording profiler the stage is
+    also a ``record_function(name)`` span; without one it enters none."""
+    span = record_function(name) if _profiler._is_profiler_enabled else None
+    if span is not None:
+        span.__enter__()
     t0 = time.perf_counter()
     try:
         yield
@@ -69,6 +79,8 @@ def stage(name: str, bases: int | None = None):
         _stats.add(f"{name}_calls")
         if bases is not None:
             _stats.add(f"{name}_bases", bases)
+        if span is not None:
+            span.__exit__(None, None, None)
 
 
 @contextlib.contextmanager

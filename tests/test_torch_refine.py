@@ -205,9 +205,9 @@ def test_score_gaps_equal(case, name, cap_ext, with_bound):
 def test_fill_gaps_patches_grid_equal(case):
     """Every gap of the three-contig batch through the host evaluator, from
     the device grid, on both sides (stats included)."""
-    from kbo_tpu.utils.stats import get_stats as jstats
     from kbo_tpu.utils.stats import reset_stats as jreset
-    from kbo_tpu_torch.utils.stats import get_stats, reset_stats
+    from kbo_tpu_torch.utils.stats import reset_stats
+    from test_torch_gap_filling import assert_stats_match
 
     import kbo_tpu
 
@@ -233,7 +233,7 @@ def test_fill_gaps_patches_grid_equal(case):
             want = jgap.fill_gaps_patches(runs, None, ref, jindex, t, p_err,
                                           grid=grid)
             assert got == want
-            assert get_stats().as_dict() == jstats().as_dict()
+            assert_stats_match()
             n_patch += len(got)
     assert n_patch > 0
     # without a grid the same runs read colex intervals (the interval gap
