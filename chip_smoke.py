@@ -188,6 +188,14 @@ Phases, each printed as it passes; any failure exits non-zero:
 
 Prints the per-kernel JSON line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+The script keeps about 33 GiB of indices and captured operands on the card
+to its end, between transient allocations of up to 10 GiB, so it runs
+PyTorch's allocator with expandable segments (PYTORCH_CUDA_ALLOC_CONF, for
+this process and its children) unless the environment sets the allocator:
+with fixed segments the profiled k = 151 map near the end has found no
+free 9.44 GiB block on an H100 (80 GB) with 33.3 GiB held and 10.3 GiB
+reserved but split.
 """
 
 from __future__ import annotations
@@ -439,6 +447,7 @@ def main() -> int:
     ap.add_argument("--mesh-index", metavar="PATH",
                     help="the two-process run's saved index")
     args = ap.parse_args()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     if args.mesh_worker:
         return _mesh_worker(args.mesh_worker, args.mesh_index,
                             int(args.genome))
@@ -479,6 +488,8 @@ def main() -> int:
     from kbo_tpu_torch.kernels import refine as refine_mod
     from kbo_tpu_torch.kernels.refine import (
         build_ext_table_core,
+        ext_walk,
+        ext_walk_plain,
         get_ext_table,
         prob_bound,
         resolve_variants_core,
@@ -675,7 +686,7 @@ def main() -> int:
         return torch.where(cb == 0xFF, -1, cb)
 
     errs = {"merge_path": 0, "clamp_scan": 0, "derandomize_translate": 0,
-            "bitonic_merge": 0, "bitonic_sort": 0}
+            "bitonic_merge": 0, "bitonic_sort": 0, "ext_walk": 0}
 
     def check(name, what, got, want):
         for g, w in zip(got, want):
@@ -1037,7 +1048,8 @@ def main() -> int:
 
     counters = {"merge_path": merge_path, "clamp_scan": clamp_scan,
                 "derandomize_translate": derandomize_translate,
-                "bitonic_merge": bitonic_merge, "bitonic_sort": bitonic_sort}
+                "bitonic_merge": bitonic_merge, "bitonic_sort": bitonic_sort,
+                "ext_walk": ext_walk}
 
     def reset_counts():
         for fn in counters.values():
@@ -1046,7 +1058,7 @@ def main() -> int:
     # launches of each call, read around that call alone
     launches = {}
     ONE_JOIN = {"merge_path": 1, "clamp_scan": 2, "derandomize_translate": 1,
-                "bitonic_merge": 0, "bitonic_sort": 0}
+                "bitonic_merge": 0, "bitonic_sort": 0, "ext_walk": 0}
 
     def read_counts(path, want=ONE_JOIN):
         torch.cuda.synchronize()
@@ -1775,6 +1787,53 @@ def main() -> int:
           f"equal the host-built index's; launches per call "
           f"{json.dumps({p: launches[p] for p in ('find_batch DeviceFullIndex', 'map_ DeviceFullIndex', 'call DeviceFullIndex')})}",
           flush=True)
+
+    # the host gap pass on the device-built full index: an unrelated
+    # 200-base stretch in the streamed side makes a gap wider than k, which
+    # the device scorer flags for the host evaluator; its left extension
+    # walks the chain links (kernels/refine.py ext_walk), one launch and no
+    # join, bit-equal to the plain version on the operands the call gave
+    # it; the map equals the host index's, whose evaluator takes the rounds
+    ref_gap = bytearray(ref)
+    g0 = n // 2 + 600
+    ref_gap[g0 : g0 + 200] = np.frombuffer(b"ACGT", dtype=np.uint8)[
+        np.random.default_rng(7).integers(0, 4, 200)].tobytes()
+    ref_gap = bytes(ref_gap)
+    reset_counts()
+    reset_stats()
+    dmap_gap, walk_args = capture(lambda: api.map_(ref_gap, full, dopts(True)),
+                                  [(gap_filling, "ext_walk")])
+    gstats = get_stats().as_dict()
+    launches["map_ DeviceFullIndex host gap"] = read_counts(
+        "map_ DeviceFullIndex host gap", {**TWO_JOINS, "ext_walk": 1})
+    if not gstats.get("gaps_to_host") or not gstats.get(
+            "host_ext_walk_lanes") or "host_ext_rounds" in gstats:
+        raise SystemExit(f"FAIL map_ with a host gap on the device full index: "
+                         f"gaps_to_host {gstats.get('gaps_to_host')}, lanes "
+                         f"walked {gstats.get('host_ext_walk_lanes')}, rounds "
+                         f"{gstats.get('host_ext_rounds')}")
+    reset_stats()
+    if dmap_gap != api.map_(ref_gap, index, dopts(True), device=cuda):
+        raise SystemExit("FAIL map_ with a host gap on the device full index "
+                         "differs from the host index's")
+    hstats = get_stats().as_dict()
+    if not hstats.get("host_ext_rounds") or hstats.get(
+            "gaps_to_host") != gstats["gaps_to_host"]:
+        raise SystemExit(f"FAIL map_ with a host gap on the host index: "
+                         f"gaps_to_host {hstats.get('gaps_to_host')}, rounds "
+                         f"{hstats.get('host_ext_rounds')}")
+    walk_ops = walk_args["ext_walk"][0]
+    w_link, w_rows, w_bud, w_width = walk_ops
+    check("ext_walk", f"host gap lanes E={w_rows.shape[0]} width={w_width} "
+          f"budgets {int(w_bud.min())}-{int(w_bud.max())} "
+          f"n={w_link.shape[0]}", ext_walk(*walk_ops),
+          ext_walk_plain(*walk_ops))
+    print(f"host gap pass on build_device(full=True): {gstats['gaps_to_host']} "
+          f"gaps to the host, {gstats['host_ext_walk_lanes']} lanes in one "
+          f"walk (launches {json.dumps(launches['map_ DeviceFullIndex host gap'])}"
+          f"), the map equal to the host index's ({hstats['host_ext_rounds']} "
+          f"rounds there)", flush=True)
+    del dmap_gap, walk_args
 
     # the membership probe on the card against the host index's binary
     # search (the CPU's answer): rows' k-mers and one-base mutants
@@ -2771,6 +2830,10 @@ def main() -> int:
          lambda: finish(dopts(True), qtab), host_ms),
         ("build_ext_table_core (once per index, not per call)",
          lambda: build_ext_table_core(dev.keys3, K), dev_ms),
+        (f"ext_walk, the host gap pass's {w_rows.shape[0]} lanes to width "
+         f"{w_width}", lambda: ext_walk(*walk_ops), dev_ms),
+        ("ext_walk_plain, the same lanes (not on the path)",
+         lambda: ext_walk_plain(*walk_ops), dev_ms),
     ):
         print(f"{tag} map_ stage {name}: {clock(fn):.3f} ms", flush=True)
     del _packed

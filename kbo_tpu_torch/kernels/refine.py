@@ -16,6 +16,10 @@
   (reference: src/gap_filling.rs:444-526); gaps whose extension lanes do
   not fit the static budgets are flagged for the exact host evaluator
   (refine/gap_filling.py).
+- :func:`ext_walk` -- the host evaluator's left extension on a device
+  index: one walk a lane along the chain table's links
+  (:func:`ext_links_core`), to any budget (``csrc/ext_walk.cu`` on the
+  card).
 
 Over a key table prefix-sharded on a model group (:class:`ShardedKeys3`)
 only what reads the table runs per shard: the row unpack, the membership
@@ -44,10 +48,13 @@ keep their top two bits clear, so they are non-negative.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
 
+from kbo_tpu_torch.kernels import _build
 from kbo_tpu_torch.kernels.ms import (
     INVALID,
     _carry_nearest,
@@ -658,19 +665,15 @@ def _shift_chain(src, e):
     return to_i32(torch.stack(out))
 
 
-def build_ext_table_core(keys3, k: int):
-    """Canonical left-extension chain of EVERY colex row, precomputed.
+def ext_links_core(keys3, k: int):
+    """Every colex row's unique chain parent: link int32 [n] =
+    ``parent_row << 3 | char``, -1 where no parent or two or more exist.
 
     The extension rule (reference: src/gap_filling.rs:205-232) extends a row
-    r by char b iff b + r[:k-1] is EXACTLY ONE row -- a function of r alone.
-    So each row has one chain parent (the unique such row, -1 when 0 or >= 2
-    exist), and a lane's extension is the first min(budget, k, chain length)
-    chars of its row's chain. One sorted (k-1)-key join pairs every row's
-    drop-last-char key with every row's drop-first-char key (one radix sort
-    of 2n keys); pointer doubling then packs up to k chain chars per row.
-
-    Returns (ext_words int32 [W, n] -- chain chars packed 3-bit in chain
-    order, slot j at word j//10 bits 27-3*(j%10); ext_len int32 [n]).
+    r by char b iff b + r[:k-1] is EXACTLY ONE row -- a function of r alone,
+    so that row is r's parent and b is the char a left extension prepends.
+    One sorted (k-1)-key join pairs every row's drop-last-char key with
+    every row's drop-first-char key (one radix sort of 2n keys).
     """
     W, n = keys3.shape
     dev = keys3.device
@@ -718,20 +721,28 @@ def build_ext_table_core(keys3, k: int):
 
     ok_b = ~isA & (cnt == 1) & (gmax >= 0)
     tgt = torch.where(ok_b, row, n).to(torch.int64)
-    parent = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
-    parent.scatter_(0, tgt, gmax >> 3)
-    parent = parent[:n]
-    pchar = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    pchar.scatter_(0, tgt, gmax & 7)
-    pchar = pchar[:n]
+    link = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+    link.scatter_(0, tgt, gmax)
+    return link[:n]
 
-    # pointer doubling: accumulate up to k chain chars per row
-    pv = parent >= 0
+
+def ext_table_from_links(link, W: int, k: int):
+    """Pointer doubling over the chain links (:func:`ext_links_core`):
+    up to k chain chars of every row, packed. Returns (ext_words int32
+    [W, n] -- chain chars packed 3-bit in chain order, slot j at word j//10
+    bits 27-3*(j%10); ext_len int32 [n])."""
+    n = link.shape[0]
+    dev = link.device
+    pv = link >= 0
+    parent = link >> 3  # -1 stays -1
+    pchar = link & 7
     ext_len = pv.to(torch.int32)
     ew = torch.zeros((W, n), dtype=torch.int32, device=dev)
     ew[0] = torch.where(pv, pchar << 27, 0)
     # rows with no parent contribute length 0 forever (hop = self)
-    hop = torch.where(pv, parent, idx[:n]).to(torch.int64)
+    hop = torch.where(
+        pv, parent, torch.arange(n, dtype=torch.int32, device=dev)
+    ).to(torch.int64)
     for _ in range(max(1, (k - 1).bit_length())):
         g_len = ext_len[hop]
         ew = ew | _shift_chain(ew[:, hop], ext_len)
@@ -740,14 +751,117 @@ def build_ext_table_core(keys3, k: int):
     return ew, ext_len
 
 
+def build_ext_table_core(keys3, k: int):
+    """Canonical left-extension chain of EVERY colex row, precomputed: a
+    lane's extension is the first min(budget, k, chain length) chars of its
+    row's chain (:func:`ext_links_core`, then :func:`ext_table_from_links`).
+
+    Returns (ext_words int32 [W, n], ext_len int32 [n]).
+    """
+    return ext_table_from_links(ext_links_core(keys3, k), keys3.shape[0], k)
+
+
+def get_ext_links(dev):
+    """The per-index chain links (:func:`ext_links_core`), computed at the
+    first call and cached on the
+    :class:`~kbo_tpu_torch.kernels.ms.DeviceIndex`."""
+    cached = getattr(dev, "_ext_links", None)
+    if cached is None:
+        cached = ext_links_core(dev.keys3, dev.k)
+        dev._ext_links = cached
+    return cached
+
+
 def get_ext_table(dev):
-    """The per-index extension-chain table, built at the first call and
-    cached on the :class:`~kbo_tpu_torch.kernels.ms.DeviceIndex`."""
+    """The per-index extension-chain table, built from the cached chain
+    links (:func:`get_ext_links`) at the first call and cached on the
+    :class:`~kbo_tpu_torch.kernels.ms.DeviceIndex`."""
     cached = getattr(dev, "_ext_table", None)
     if cached is None:
-        cached = build_ext_table_core(dev.keys3, dev.k)
+        cached = ext_table_from_links(get_ext_links(dev), dev.keys3.shape[0],
+                                      dev.k)
         dev._ext_table = cached
     return cached
+
+
+def ext_walk_plain(link, rows, budgets, width: int):
+    """Plain version of :func:`ext_walk`: one gather of the links a step."""
+    E = rows.shape[0]
+    dev = link.device
+    n = link.shape[0]
+    B = max(int(width), 0)
+    chars = torch.zeros((E, B), dtype=torch.uint8, device=dev)
+    n_ext = torch.zeros(E, dtype=torch.int32, device=dev)
+    r = rows.to(torch.int64)
+    alive = (r >= 0) & (r < n)
+    for j in range(B):
+        nxt = link[torch.clamp(r, 0, n - 1)]
+        step = alive & (budgets > j) & (nxt >= 0)
+        chars[:, j] = torch.where(step, nxt & 7, 0).to(torch.uint8)
+        r = torch.where(step, (nxt >> 3).to(torch.int64), r)
+        n_ext += step.to(torch.int32)
+        alive = step
+    return chars, n_ext
+
+
+@functools.cache
+def _walk_lib():
+    lib = _build.load("ext_walk")
+    p = ctypes.c_void_p
+    lib.kbo_ext_walk.argtypes = [
+        p, ctypes.c_longlong, p, p, ctypes.c_longlong, ctypes.c_int, p, p, p,
+    ]
+    lib.kbo_ext_walk.restype = ctypes.c_int
+    return lib
+
+
+def ext_walk(link, rows, budgets, width: int):
+    """Left extension of E lanes along the chain links: lane e starts at
+    colex row ``rows[e]`` and prepends each unique parent's char until
+    ``budgets[e]`` chars or a row without a unique parent. The rule of
+    refine/gap_filling.py::_left_extend_batch (reference:
+    src/gap_filling.rs:205-232), with no row search: any budget, k or above
+    too (a chain may cycle through a tandem repeat; the budget ends it).
+
+    link: int32 [n] (:func:`get_ext_links`); rows, budgets: int64 [E] on
+    its device; width: the largest budget, which the caller knows on the
+    host, so the launch waits on nothing (a larger budget is capped to it).
+    Returns (chars uint8 [E, width] in prepend order -- chars[e, j] the
+    j-th char prepended, 0 from n_ext[e] on --, n_ext int32 [E]). CUDA
+    tensors launch ``csrc/ext_walk.cu`` (a thread a lane); CPU tensors take
+    :func:`ext_walk_plain`.
+    """
+    dev = link.device
+    if dev.type == "cpu":
+        return ext_walk_plain(link, rows, budgets, width)
+    if rows.device != dev or budgets.device != dev:
+        raise ValueError("ext_walk operands must be on one device")
+    if link.dtype != torch.int32:
+        raise TypeError("ext_walk wants int32 links")
+    if rows.dim() != 1 or budgets.shape != rows.shape:
+        raise ValueError("ext_walk wants rows [E] and budgets [E]")
+    rows = rows.to(torch.int64).contiguous()
+    budgets = budgets.to(torch.int64).contiguous()
+    link = link.contiguous()
+    E = rows.shape[0]
+    B = max(int(width), 0)
+    chars = torch.empty((E, B), dtype=torch.uint8, device=dev)
+    n_ext = torch.empty(E, dtype=torch.int32, device=dev)
+    if E == 0:
+        return chars, n_ext
+    lib = _walk_lib()
+    with torch.cuda.device(dev):
+        err = lib.kbo_ext_walk(
+            link.data_ptr(), link.shape[0], rows.data_ptr(),
+            budgets.data_ptr(), E, B, chars.data_ptr(),
+            n_ext.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "ext_walk")
+    ext_walk.launches += 1
+    return chars, n_ext
+
+
+ext_walk.launches = 0
 
 
 def ext_from_table(ext_words, ext_len_tab, rows, kmers, budgets, k: int):

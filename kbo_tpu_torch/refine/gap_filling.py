@@ -13,10 +13,11 @@ of per-gap sequential:
 3. every unique-context candidate of every gap is evaluated at once: k-mer
    texts from the index, left/right reference-overlap run lengths as
    cumprod reductions over [n_candidates, k] matrices;
-4. candidates that need left extension run together through a
-   lane-batched search: membership probes for full-length patterns (a
-   binary search over a host index's keys, an interval probe on a
-   device-built index's card), rank probes for shorter ones;
+4. candidates that need left extension run together: on a device index,
+   one walk a lane along its chain table's links (kernels/refine.py
+   ``ext_walk``); on a host index, a lane-batched search of membership
+   probes for full-length patterns (a binary search over its keys), rank
+   probes for shorter ones;
 5. per gap, the accepted fill is the first successful candidate in
    descending position order -- the one the reference's sequential scan
    commits to, because candidate evaluations are independent.
@@ -32,6 +33,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from kbo_tpu_torch.index.encode import (
     CODE_TO_ASCII,
@@ -40,6 +42,8 @@ from kbo_tpu_torch.index.encode import (
     encode_ascii,
 )
 from kbo_tpu_torch.index.sbwt import SbwtIndex
+from kbo_tpu_torch.kernels.ms import DeviceIndex
+from kbo_tpu_torch.kernels.refine import ext_walk, get_ext_links
 from kbo_tpu_torch.ops.derandomize import log_rm_max_cdf
 from kbo_tpu_torch.utils.stats import get_stats
 
@@ -227,6 +231,29 @@ def _left_extend_batch(
             [np.asarray(prepended[i][::-1], dtype=np.uint8), kmers[i]]
         )
         for i in range(E)
+    ]
+
+
+def _left_extend(sbwt, kmers: np.ndarray, rows: np.ndarray,
+                 budgets: np.ndarray) -> list[np.ndarray]:
+    """:func:`_left_extend_batch`'s extended codes for lanes whose k-mers
+    are the index's colex ``rows``. A device index walks its chain links
+    (kernels/refine.py ``ext_walk``: one upload, one launch, one fetch; the
+    lanes count in the run's stats as ``host_ext_walk_lanes``); a host
+    index takes the rounds."""
+    if not isinstance(sbwt, DeviceIndex):
+        return _left_extend_batch(sbwt, kmers, budgets)
+    link = get_ext_links(sbwt)
+    lanes = torch.from_numpy(
+        np.stack([rows, budgets]).astype(np.int64)
+    ).to(link.device)
+    chars, n_ext = ext_walk(link, lanes[0], lanes[1], int(budgets.max()))
+    chars = chars.cpu().numpy()
+    n_ext = n_ext.cpu().numpy()
+    get_stats().add("host_ext_walk_lanes", kmers.shape[0])
+    return [
+        np.concatenate([chars[i, : n_ext[i]][::-1], kmers[i]])
+        for i in range(kmers.shape[0])
     ]
 
 
@@ -482,8 +509,8 @@ def _score_candidates(
     lanes = np.flatnonzero(case_b)
     if lanes.size:
         budgets = (lreq + gap_len + rg - k)[lanes]
-        extended = _left_extend_batch(
-            sbwt, kmers[lanes], np.maximum(budgets, 0)
+        extended = _left_extend(
+            sbwt, kmers[lanes], rows[lanes], np.maximum(budgets, 0)
         )
         for lane, ext in zip(lanes.tolist(), extended):
             L = ext.size

@@ -973,3 +973,65 @@ def test_search_loop_on_card(cuda, k):
         assert torch.equal(g.cpu(), w) and torch.equal(g4.cpu(), w)
     assert torch.equal(refine.unpack_rows3(sk, rows.to(cuda), k).cpu()[
         rows >= 0], kmers[rows >= 0])
+
+
+def test_ext_walk_on_card(cuda):
+    """The chain-link walk (kernels/refine.py ext_walk) on the card equals
+    its plain version at the benchmark's shape: the links of a 4.7 M row
+    index holding a tandem repeat (a chain that cycles), 4096 random lanes
+    and the repeat's 7 rows 8 times each, at budgets 0 to 200. Then one
+    default map_ through a device full index with a gap for the host
+    evaluator launches it once and equals the map through the host index,
+    whose evaluator takes the rounds."""
+    from kbo_tpu_torch import api
+    from kbo_tpu_torch.kernels.refine import (
+        ext_walk,
+        ext_walk_plain,
+        get_ext_links,
+    )
+    from kbo_tpu_torch.utils.stats import get_stats, reset_stats
+
+    rng = np.random.default_rng(40)
+    genome = BASES[rng.integers(0, 4, 4_700_000)].tobytes()
+    # a sequence that is a tandem repeat and nothing else: every row of it
+    # has one parent (its first is preceded by '$' alone), so chains cycle
+    repeat = b"ACGTTGA" * 100
+    k = 51
+    bo = kbo_tpu_torch.BuildOpts(k=k)
+    gpu = api.build_device([genome, repeat], bo, full=True, device=cuda)
+    link = get_ext_links(gpu)
+    assert link.shape[0] >= 4_700_000
+    row_pos = gpu.row_pos[: gpu.n_rows].cpu().numpy()
+    in_repeat = np.flatnonzero(row_pos >= 3 * k + len(genome) - 1)
+    rows = np.concatenate([rng.integers(0, gpu.n_rows, 4096),
+                           np.repeat(in_repeat, 8)]).astype(np.int64)
+    budgets = rng.integers(0, 201, rows.size).astype(np.int64)
+    n_rep = 8 * in_repeat.size
+    budgets[-n_rep:] = 200
+    r_d = torch.from_numpy(rows).to(cuda)
+    b_d = torch.from_numpy(budgets).to(cuda)
+    before = ext_walk.launches
+    got = ext_walk(link, r_d, b_d, 200)
+    assert ext_walk.launches == before + 1
+    want = ext_walk_plain(link, r_d, b_d, 200)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert in_repeat.size == 7 and (got[1][-n_rep:] == 200).all()
+
+    query = bytes(genome[:200_000])
+    ref = bytearray(query)
+    ref[100_000:100_200] = BASES[rng.integers(0, 4, 200)].tobytes()
+    for p in (150_000, 150_012):
+        ref[p] = BASES[(BASES.tolist().index(ref[p]) + 1) % 4]
+    bo = kbo_tpu_torch.BuildOpts(k=51, build_select=True)
+    opts = kbo_tpu_torch.MapOpts(sbwt_build_opts=bo)
+    full = api.build_device([query], bo, full=True, device=cuda)
+    reset_stats()
+    before = ext_walk.launches
+    out = api.map_(bytes(ref), full, opts, device=cuda)
+    assert ext_walk.launches == before + 1
+    d = get_stats().as_dict()
+    assert d["gaps_to_host"] > 0 and d["host_ext_walk_lanes"] > 0
+    assert "host_ext_rounds" not in d
+    host = kbo_tpu_torch.build([query], bo)
+    assert out == api.map_(bytes(ref), host, opts, device=cuda)

@@ -41,8 +41,10 @@ from test_gap_filling_golden import (
 torch.set_num_threads(2)
 
 # keys of the port's run stats that kbo_tpu does not keep: the rounds of
-# the host left extension (refine/gap_filling.py::_left_extend_batch)
-PORT_ONLY = {"host_ext_rounds"}
+# the host left extension on a host index
+# (refine/gap_filling.py::_left_extend_batch) and the lanes of the walk that
+# takes their place on a device index (kernels/refine.py::ext_walk)
+PORT_ONLY = {"host_ext_rounds", "host_ext_walk_lanes"}
 
 
 def assert_stats_match():
