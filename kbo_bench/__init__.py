@@ -1,4 +1,5 @@
-"""Benchmark of the PyTorch/CUDA port (``kbo_tpu_torch``) on one H100.
+"""Benchmark of the PyTorch/CUDA port (``kbo_tpu_torch``) on H100 cards: a
+cell takes one card or four.
 
 ``python3 -m kbo_bench.run --workload <cell> --seed <n> --seconds <s>
 --trace <0|1>`` runs one cell of ``BENCHMARK.json``. Everything a cell needs

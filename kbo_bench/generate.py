@@ -1,10 +1,12 @@
-"""The benchmark's one generator: genomes, draft assemblies and gene panels
-from a seed, read from a configuration file and a traffic file.
+"""The benchmark's one generator: genomes, draft assemblies, gene panels
+and batches of sequencing reads from a seed, read from a configuration file
+and a traffic file.
 
 Every size and every position is fixed by the files or drawn from a fixed
 stream that does not depend on the seed: where repeats, SNPs, indels,
-islands and contig breaks fall. The seed draws the bases and the order of
-the pool, so two seeds send the same work.
+islands and contig breaks fall, where reads start, which strand they come
+from and where they carry substitutions. The seed draws the bases and the
+order of the pool, so two seeds send the same work.
 """
 
 from __future__ import annotations
@@ -199,12 +201,46 @@ def panel(cfg: dict, spec: dict, ref: list[bytes], seed: int) -> list[bytes]:
     return [genes[i] for i in order]
 
 
+def reads(spec: dict, contigs: list[bytes], seed: int,
+          member: int) -> list[bytes]:
+    """A batch of ``spec["per_request"]`` reads of ``spec["length"]`` bases
+    from one draft's ``contigs``: each from a start drawn uniformly over the
+    draft's positions, ``spec["revcomp_share"]`` of them reverse-complemented,
+    with ``spec["subst"]`` substitutions per base. Starts, strands and
+    substituted positions come from the fixed stream (as fractions of the
+    draft, so every draft takes them); the seed draws the substituted
+    bases."""
+    n, L = spec["per_request"], spec["length"]
+    lay = rng(_FIXED, 50, member)
+    seq = np.frombuffer(b"".join(contigs), dtype=np.uint8)
+    sizes = np.array([len(c) for c in contigs], dtype=np.int64)
+    fits = np.maximum(sizes - L + 1, 0)  # the starts a read has, a contig
+    cum = np.cumsum(fits)
+    u = (lay.random(n) * cum[-1]).astype(np.int64)
+    j = np.searchsorted(cum, u, side="right")
+    starts = (np.cumsum(sizes) - sizes)[j] + u - (cum - fits)[j]
+    batch = seq[starts[:, None] + np.arange(L)]
+    n_sub = int(round(spec["subst"] * n * L))
+    flat = lay.choice(n * L, size=n_sub, replace=False)
+    g = rng(seed, 5, member)
+    sub = batch.reshape(-1)
+    sub[flat] = BASES[(np.searchsorted(BASES, sub[flat])
+                       + g.integers(1, 4, size=n_sub)) % 4]
+    flip = lay.permutation(n)[: int(round(spec["revcomp_share"] * n))]
+    batch[flip] = _COMP[batch[flip]][:, ::-1]
+    return [r.tobytes() for r in batch]
+
+
 def make(cfg: dict, traffic: dict, seed: int) -> dict:
     """Everything a run sends: the reference contigs, the assembly pool and,
-    where the traffic has one, the gene panel."""
+    where the traffic has them, the gene panel and a batch of reads per pool
+    member."""
     ref, mids = reference(cfg, seed)
     data = {"reference": ref,
             "pool": assemblies(cfg, traffic, ref, mids, seed)}
     if "panel" in traffic:
         data["panel"] = panel(cfg, traffic["panel"], ref, seed)
+    if "reads" in traffic:
+        data["reads"] = [reads(traffic["reads"], asm, seed, i)
+                         for i, asm in enumerate(data["pool"])]
     return data

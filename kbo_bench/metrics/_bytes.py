@@ -7,6 +7,10 @@ the request's own sizes (never from which kernels ran).
   row holds k bases at two bits each, ``ceil(2k / 8)`` bytes;
 - the streamed bases, read once, and one output byte written per streamed
   position (its translated character or MS value).
+
+A request against an index that stands from set-up (``screen_bytes``)
+counts no build: its key rows are read once and the indexed bases not at
+all.
 """
 
 from __future__ import annotations
@@ -22,3 +26,9 @@ def request_bytes(k: int, indexed: list[int], revcomp: bool,
     rows = a * (2 if revcomp else 1)
     s = sum(streamed)
     return a + 2 * rows * key_bytes(k) + 2 * s
+
+
+def screen_bytes(k: int, index_positions: int, revcomp: bool,
+                 streamed: list[int]) -> int:
+    rows = index_positions * (2 if revcomp else 1)
+    return rows * key_bytes(k) + 2 * sum(streamed)

@@ -90,6 +90,8 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     if traffic is None:
         traffic = json.loads(
             (HERE / "traffic" / f"{cell['traffic']}.json").read_text())
+    cards = cell["chips"]
+    traffic = dict(traffic, cards=cards)  # a verb that spans cards reads it
     verb = load(HERE / "verbs" / f"{traffic['verb']}.py")
     cuda = str(device).startswith("cuda")
 
@@ -107,7 +109,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     red = None
     if trace:
         n = traffic["trace_requests"]
-        _, red = tracing.traced(lambda j: verb.request(state, j), n)
+        _, red = tracing.traced(lambda j: verb.request(state, j), n, cards)
         red["bytes"] = sum(verb.work_bytes(cfg, traffic, data, j)
                            for j in range(n))
 
@@ -137,7 +139,8 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
                 hashlib.sha1(verb.digest(out)).hexdigest())
     del answers
     stats = run_stats.get_stats().as_dict()
-    peak_mem = torch.cuda.max_memory_allocated() if cuda else 0
+    peaks = ([torch.cuda.max_memory_allocated(d) for d in range(cards)]
+             if cuda else [0] * cards)
     kind = torch.cuda.get_device_name(0) if cuda else "cpu"
 
     found = forbidden_modules()
@@ -172,12 +175,14 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     dev = {"platform": "gpu" if cuda else "cpu", "kind": kind,
-           "count": cell["chips"], "memory_peak_bytes": int(peak_mem)}
+           "count": cards, "memory_peak_bytes": int(max(peaks)),
+           "memory_peak_bytes_by_card": [int(p) for p in peaks]}
     result = {"correct": bool(correct), "attempted": len(requests),
               "failed": failed, "metrics": metrics, "device": dev}
     if red is not None:
         dev["busy_s"] = red["busy_s"]
         dev["window_s"] = red["window_s"]
+        dev["busy_s_by_card"] = red["busy_s_by_card"]
         result["breakdown"] = {"device_ops": red["device_ops"],
                                "idle_gaps": red["idle_gaps"]}
     result["checks"] = {n: {"value": checks[n], "limit": limits[n]}

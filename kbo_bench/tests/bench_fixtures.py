@@ -19,14 +19,27 @@ TINY_CFG = {
 }
 
 
+# a read screen over a CPU mesh of four shards: a cell of no BENCHMARK.json
+SCREEN_CELL = {"name": "tiny.screen_x4", "config": "tiny", "traffic": "screen",
+               "chips": 4, "why": "reads against a standing index, 4 shards"}
+SCREEN_TRAFFIC = {"verb": "screen", "pool": 4, "check": 1, "trace_requests": 6,
+                  "reads": {"per_request": 65536, "length": 150,
+                            "subst": 0.001, "revcomp_share": 0.5}}
+
+
 def cell(name):
-    return next(w for w in BENCH["workloads"] if w["name"] == name)
+    return next(w for w in BENCH["workloads"] + [SCREEN_CELL]
+                if w["name"] == name)
 
 
 def tiny_traffic(name):
-    t = json.loads((ROOT / "kbo_bench" / "traffic"
-                    / f"{cell(name)['traffic']}.json").read_text())
-    t = copy.deepcopy(t)
+    if name == SCREEN_CELL["name"]:
+        t = copy.deepcopy(SCREEN_TRAFFIC)
+        t["reads"]["per_request"] = 96
+    else:
+        t = json.loads((ROOT / "kbo_bench" / "traffic"
+                        / f"{cell(name)['traffic']}.json").read_text())
+        t = copy.deepcopy(t)
     t["pool"] = 2
     t["trace_requests"] = 1
     if "panel" in t:

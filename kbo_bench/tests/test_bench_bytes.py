@@ -19,3 +19,11 @@ def test_map_request_bytes():
 def test_find_counts_both_strands_rows_once_each():
     assert _bytes.request_bytes(51, [100], True, [10, 20]) == (
         100 + 2 * 200 * 13 + 2 * 30)
+
+
+def test_screen_reads_a_standing_index_once_and_builds_nothing():
+    # 100 indexed positions on both strands, k = 51, reads of 80 and 70:
+    # 200 rows x 13 B read + 150 bases read + 150 bytes written
+    assert _bytes.screen_bytes(51, 100, True, [80, 70]) == (
+        200 * 13 + 150 + 150)
+    assert _bytes.screen_bytes(51, 100, False, [10]) == 100 * 13 + 20

@@ -4,10 +4,10 @@ small size."""
 import pytest
 
 from kbo_bench import control
-from kbo_bench.tests.bench_fixtures import TINY_CFG, tiny_traffic
+from kbo_bench.tests.bench_fixtures import SCREEN_CELL, TINY_CFG, tiny_traffic
 
 CELLS = ["ecoli_mg1655.map_close", "ecoli_mg1655.find_panel",
-         "kpneumo_hs11286.call_close"]
+         "kpneumo_hs11286.call_close", SCREEN_CELL["name"]]
 
 
 @pytest.mark.parametrize("name", CELLS)

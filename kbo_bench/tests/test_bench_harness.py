@@ -2,6 +2,7 @@
 sound runs come out correct, and each fault a cell can have comes out as
 not correct. Also the ways a run must refuse to print a result."""
 
+import importlib
 import json
 import shutil
 import subprocess
@@ -10,10 +11,11 @@ import sys
 import pytest
 
 from kbo_bench import run
-from kbo_bench.tests.bench_fixtures import BENCH, ROOT, TINY_CFG, cell, tiny_traffic
+from kbo_bench.tests.bench_fixtures import (BENCH, ROOT, SCREEN_CELL, TINY_CFG,
+                                           cell, tiny_traffic)
 
 CELLS = {"map": "ecoli_mg1655.map_close", "find": "ecoli_mg1655.find_panel",
-         "call": "kpneumo_hs11286.call_close"}
+         "call": "kpneumo_hs11286.call_close", "screen": SCREEN_CELL["name"]}
 
 
 def _run(name, trace=False):
@@ -73,12 +75,22 @@ def _half_call(orig):
     return f
 
 
-FAULTS = {
-    ("map", "alter"): ("map_batch", _alter_map),
-    ("map", "half"): ("map_batch", _half_map),
-    ("find", "alter"): ("find_batch", _alter_find),
-    ("find", "half"): ("find_batch", _half_find),
-    ("call", "alter"): ("call", _alter_call), ("call", "half"): ("call", _half_call),
+def _first_shard_only(orig):  # the other shards' answers never gathered
+    def f(mesh, parts, *a, **kw):
+        return orig(mesh, [parts[0]] * len(parts), *a, **kw)
+    return f
+
+
+FAULTS = {  # (verb, fault): (what of kbo_tpu_torch is broken, how)
+    ("map", "alter"): ("api.map_batch", _alter_map),
+    ("map", "half"): ("api.map_batch", _half_map),
+    ("find", "alter"): ("api.find_batch", _alter_find),
+    ("find", "half"): ("api.find_batch", _half_find),
+    ("call", "alter"): ("api.call", _alter_call),
+    ("call", "half"): ("api.call", _half_call),
+    ("screen", "alter"): ("api.find_batch", _alter_find),
+    ("screen", "half"): ("api.find_batch", _half_find),
+    ("screen", "gather"): ("parallel.mesh.gather_to_host", _first_shard_only),
 }
 
 
@@ -89,14 +101,17 @@ def test_sound_run_is_correct(verb):
     assert "setup_s" in res["metrics"]
     assert list(res)[-1] == "checks"
     assert all(c["value"] == 0 for c in res["checks"].values())
+    cards = cell(CELLS[verb])["chips"]
+    assert res["device"]["count"] == cards
+    assert res["device"]["memory_peak_bytes_by_card"] == [0] * cards
 
 
 @pytest.mark.parametrize("verb,fault", sorted(FAULTS))
 def test_fault_in_the_timed_path_is_not_correct(verb, fault, monkeypatch):
-    from kbo_tpu_torch import api
-
-    attr, wrap = FAULTS[(verb, fault)]
-    monkeypatch.setattr(api, attr, wrap(getattr(api, attr)))
+    path, wrap = FAULTS[(verb, fault)]
+    mod_name, attr = path.rsplit(".", 1)
+    mod = importlib.import_module(f"kbo_tpu_torch.{mod_name}")
+    monkeypatch.setattr(mod, attr, wrap(getattr(mod, attr)))
     res = _run(CELLS[verb])
     assert not res["correct"]
     assert any(c["value"] > c["limit"] for c in res["checks"].values())

@@ -60,9 +60,10 @@ def test_reader_on_synthetic_runs(name):
                                   "ecoli_mg1655.find_panel",
                                   "kpneumo_hs11286.call_close"])
 def test_traced_cpu_run_prints_every_new_reader(name, monkeypatch):
-    def traced(fn, n):
+    def traced(fn, n, cards=1):
         outs = [fn(j) for j in range(n)]
-        return outs, {"busy_s": 0.0, "kernel_s": 0.0, "window_s": 1.0,
+        return outs, {"busy_s": 0.0, "busy_s_by_card": [0.0] * cards,
+                      "kernel_s": 0.0, "window_s": 1.0,
                       "device_ops": [], "idle_gaps": []}
 
     monkeypatch.setattr(run.tracing, "traced", traced)

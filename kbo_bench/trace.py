@@ -1,7 +1,7 @@
 """A short traced phase under ``torch.profiler``, reduced to what the run
-reports: the union of device-operation intervals (busy), the summed kernel
-time, the device operations that took most time, and the longest idle gaps
-with what the host was doing in each."""
+reports: each card's union of device-operation intervals (busy), the summed
+kernel time, the device operations that took most time, and the longest
+idle gaps with what the host was doing in each."""
 
 from __future__ import annotations
 
@@ -13,9 +13,10 @@ import time
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def traced(fn, n: int) -> tuple[list, dict]:
+def traced(fn, n: int, cards: int = 1) -> tuple[list, dict]:
     """Run ``fn(j)`` for j < n under the profiler; returns the results and
-    the reduced trace."""
+    the reduced trace. The window closes once each of the cell's ``cards``
+    cards (``cuda:0`` on) has finished its work."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -26,7 +27,8 @@ def traced(fn, n: int) -> tuple[list, dict]:
         for j in range(n):
             with record_function(f"request {j}"):
                 outs.append(fn(j))
-        torch.cuda.synchronize()
+        for d in range(cards):
+            torch.cuda.synchronize(d)
         window = time.perf_counter() - t0
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
@@ -36,7 +38,7 @@ def traced(fn, n: int) -> tuple[list, dict]:
             events = json.load(f)["traceEvents"]
     finally:
         os.unlink(path)
-    red = reduce_events(events)
+    red = reduce_events(events, cards)
     red["window_s"] = window
     return outs, red
 
@@ -51,10 +53,24 @@ def _union(iv: list[tuple[float, float]]) -> list[tuple[float, float]]:
     return [(s, e) for s, e in out]
 
 
-def reduce_events(events: list[dict], top: int = 10) -> dict:
+def _card(e: dict):
+    """The card a device event ran on: its ``device`` argument, else its
+    process id (the profiler gives a card's rows that card's index)."""
+    return e.get("args", {}).get("device", e.get("pid"))
+
+
+def reduce_events(events: list[dict], cards: int = 1, top: int = 10) -> dict:
     """Busy and kernel seconds, top device ops and longest idle gaps from a
-    Chrome trace's events (times in microseconds)."""
+    Chrome trace's events (times in microseconds).
+
+    ``busy_s`` is the mean over the cell's ``cards`` of each card's own
+    union of device intervals (``busy_s_by_card``), a card without events
+    counting as idle, so ``1 - busy_s / window`` is a card's mean idle
+    share; with one card every device event is that card's. ``kernel_s``
+    sums over all cards (card-seconds). The idle gaps are those of the union
+    over all cards: times when no card worked."""
     dev, kern_s, by_name = [], 0.0, {}
+    by_card: dict = {}
     host = []
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
@@ -63,6 +79,8 @@ def reduce_events(events: list[dict], top: int = 10) -> dict:
         s, d = float(e["ts"]), float(e["dur"])
         if cat in DEVICE_CATS:
             dev.append((s, s + d))
+            by_card.setdefault(_card(e) if cards > 1 else 0, []).append(
+                (s, s + d))
             by_name[e["name"]] = by_name.get(e["name"], 0.0) + d
             if cat == "kernel":
                 kern_s += d * 1e-6
@@ -80,8 +98,12 @@ def reduce_events(events: list[dict], top: int = 10) -> dict:
         last = max(before, key=lambda h: h[1])[2] if before else "start"
         labelled.append([f"in {inner} after {last}"[:120], (e - s) * 1e-6])
     ops = sorted(by_name.items(), key=lambda x: -x[1])[:top]
+    busy_by_card = [sum(e - s for s, e in _union(by_card[c])) * 1e-6
+                    for c in sorted(by_card, key=str)]
+    busy_by_card += [0.0] * (cards - len(busy_by_card))
     return {
-        "busy_s": sum(e - s for s, e in busy) * 1e-6,
+        "busy_s": sum(busy_by_card) / len(busy_by_card),
+        "busy_s_by_card": busy_by_card,
         "kernel_s": kern_s,
         "device_ops": [[n[:120], d * 1e-6] for n, d in ops],
         "idle_gaps": labelled,
