@@ -283,8 +283,10 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
     (refine/gap_filling.py). The output is fetched as run-length deltas
     against the reference and painted on the host (kernels/mapsweep.py,
     refine/device_map.py). The host clock of each step goes to the run's
-    stats: ``map_upload`` (the pipelined chunked sweep runs inside it),
-    ``map_sweep`` (with its bases), ``map_postprocess``, then those of
+    stats: ``map_upload`` (the pipelined chunked sweep runs inside it, as
+    ``map_sweep_chunked`` with its bases, ``map_chunk_pack`` a chunk and
+    the counter ``map_sweep_chunks``), ``map_sweep`` (with its bases;
+    absent on the pipelined route), ``map_postprocess``, then those of
     :func:`~kbo_tpu_torch.refine.device_map.map_devref_finish`;
     ``map_overflow_retries`` counts the capacity retries.
 

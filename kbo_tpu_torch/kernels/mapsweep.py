@@ -40,6 +40,7 @@ import torch
 from kbo_tpu_torch import native
 from kbo_tpu_torch.kernels.ms import INVALID, ms2_core, ms3_rows_core
 from kbo_tpu_torch.kernels.postprocess import derandomize_translate
+from kbo_tpu_torch.utils.stats import get_stats, stage
 
 _BIG32 = 2**31 - 1
 _M, _X, _DASH = ord("M"), ord("X"), ord("-")
@@ -255,6 +256,10 @@ def ms3_rows_sweep_chunked(keys3, ref_packed, codes, k: int, chunk: int,
     appears with full k-1 context in exactly one chunk's buffer, and a
     context-region duplicate can only carry a truncated (<=) key/limit, so a
     max over per-chunk joins against these tables is exact.
+
+    Run stats: the chunk loop is the span ``map_sweep_chunked`` and
+    ``map_sweep_chunks`` counts its chunks (the caller's ``map_sweep`` span
+    counts the bases).
     """
     Q, L = codes.shape
     n_chunks = (L + chunk - 1) // chunk
@@ -264,19 +269,22 @@ def ms3_rows_sweep_chunked(keys3, ref_packed, codes, k: int, chunk: int,
         tail = torch.full((Q, Lp - L), INVALID, dtype=torch.uint8, device=dev)
         codes = torch.cat([codes, tail], dim=1)
     parts = []
-    for c in range(n_chunks):
-        lo = c * chunk
-        if c == 0:
-            ctx = torch.full((Q, k - 1), INVALID, dtype=torch.uint8, device=dev)
-        else:
-            ctx = codes[:, lo - (k - 1) : lo]
-        parts.append(
-            _ms3_rows_chunk(
-                keys3, ref_packed,
-                torch.cat([ctx, codes[:, lo : lo + chunk]], dim=1),
-                k, want_qtable,
+    with stage("map_sweep_chunked"):
+        for c in range(n_chunks):
+            lo = c * chunk
+            if c == 0:
+                ctx = torch.full((Q, k - 1), INVALID, dtype=torch.uint8,
+                                 device=dev)
+            else:
+                ctx = codes[:, lo - (k - 1) : lo]
+            parts.append(
+                _ms3_rows_chunk(
+                    keys3, ref_packed,
+                    torch.cat([ctx, codes[:, lo : lo + chunk]], dim=1),
+                    k, want_qtable,
+                )
             )
-        )
+    get_stats().add("map_sweep_chunks", n_chunks)
     ms, uniq, rows = (
         torch.cat([p[i] for p in parts], dim=1)[:, :L] for i in range(3)
     )
@@ -302,7 +310,11 @@ def upload_sweep_chunked_pipelined(keys3, ref_packed, ref_mat, lengths,
 
     Returns (ref_mat_dev [Q, L], codes_dev [Q, L], ms, uniq, rows,
     qtables or None), or None when the packed upload does not apply (the
-    caller takes the one-shot upload)."""
+    caller takes the one-shot upload).
+
+    Run stats: the chunk loop is the span ``map_sweep_chunked`` with the
+    rows' bases, each chunk's host pack the span ``map_chunk_pack``, and
+    ``map_sweep_chunks`` counts the chunks of a sweep that completed."""
     Q, L = ref_mat.shape
     if L % 4 or chunk % 4:
         return None
@@ -310,29 +322,35 @@ def upload_sweep_chunked_pipelined(keys3, ref_packed, ref_mat, lengths,
     n_chunks = (L + chunk - 1) // chunk
     lens = np.asarray(lengths)
     ref_parts, code_parts, sweeps = [], [], []
-    for c in range(n_chunks):
-        lo = c * chunk
-        hi = min(lo + chunk, L)
-        sl = ref_mat[:, lo:hi]
-        if hi - lo < chunk:
-            sl = np.pad(sl, ((0, 0), (0, chunk - (hi - lo))))
-        in_chunk_lens = np.clip(lens - lo, 0, chunk).astype(np.int32)
-        packed_up = pack_ascii_host(np.ascontiguousarray(sl), in_chunk_lens)
-        if packed_up is None:
-            return None  # dense exceptions: the one-shot raw upload
-        r_dev, c_dev = decode_packed4_encode_device(
-            *(torch.from_numpy(a).to(dev)
-              for a in packed_up + (in_chunk_lens,))
-        )
-        if c == 0:
-            ctx = torch.full((Q, k - 1), INVALID, dtype=torch.uint8, device=dev)
-        else:
-            ctx = code_parts[-1][:, -(k - 1):]
-        ref_parts.append(r_dev)
-        code_parts.append(c_dev)
-        sweeps.append(_ms3_rows_chunk(
-            keys3, ref_packed, torch.cat([ctx, c_dev], dim=1), k, want_qtable
-        ))
+    with stage("map_sweep_chunked", bases=int(lens.sum())):
+        for c in range(n_chunks):
+            lo = c * chunk
+            hi = min(lo + chunk, L)
+            sl = ref_mat[:, lo:hi]
+            if hi - lo < chunk:
+                sl = np.pad(sl, ((0, 0), (0, chunk - (hi - lo))))
+            in_chunk_lens = np.clip(lens - lo, 0, chunk).astype(np.int32)
+            with stage("map_chunk_pack"):
+                packed_up = pack_ascii_host(np.ascontiguousarray(sl),
+                                            in_chunk_lens)
+            if packed_up is None:
+                return None  # dense exceptions: the one-shot raw upload
+            r_dev, c_dev = decode_packed4_encode_device(
+                *(torch.from_numpy(a).to(dev)
+                  for a in packed_up + (in_chunk_lens,))
+            )
+            if c == 0:
+                ctx = torch.full((Q, k - 1), INVALID, dtype=torch.uint8,
+                                 device=dev)
+            else:
+                ctx = code_parts[-1][:, -(k - 1):]
+            ref_parts.append(r_dev)
+            code_parts.append(c_dev)
+            sweeps.append(_ms3_rows_chunk(
+                keys3, ref_packed, torch.cat([ctx, c_dev], dim=1), k,
+                want_qtable,
+            ))
+    get_stats().add("map_sweep_chunks", n_chunks)
     ref_mat_dev = torch.cat(ref_parts, dim=1)[:, :L]
     codes_dev = torch.cat(code_parts, dim=1)[:, :L]
     ms, uniq, rows = (

@@ -43,8 +43,9 @@ torch.set_num_threads(2)
 # keys of the port's run stats that kbo_tpu does not keep: the rounds of
 # the host left extension on a host index
 # (refine/gap_filling.py::_left_extend_batch) and the lanes of the walk that
-# takes their place on a device index (kernels/refine.py::ext_walk)
-PORT_ONLY = {"host_ext_rounds", "host_ext_walk_lanes"}
+# takes their place on a device index (kernels/refine.py::ext_walk), and
+# the chunks of map's chunked rows sweep (kernels/mapsweep.py)
+PORT_ONLY = {"host_ext_rounds", "host_ext_walk_lanes", "map_sweep_chunks"}
 
 
 def assert_stats_match():
