@@ -31,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from kbo_tpu_torch import native
 from kbo_tpu_torch.index.encode import (
     decode_codes,
     encode_ascii,
@@ -46,7 +47,7 @@ from kbo_tpu_torch.kernels.sort import (
     to_i32,
     u32,
 )
-from kbo_tpu_torch.utils.stats import stage
+from kbo_tpu_torch.utils.stats import get_stats, stage
 
 INVALID = 255
 _BIG = 2**31 - 1
@@ -833,27 +834,49 @@ def _seq_keys3(buf, k: int):
     return sw, (neq & (sfull == 1)).sum(dtype=torch.int32)
 
 
+def seq_index_buffer(seqs: list[bytes], k: int,
+                     add_revcomp: bool = False) -> np.ndarray:
+    """A :class:`DeviceSeqIndex`'s construction buffer, written from the
+    contigs' raw bytes by the native library (:func:`native.index_text`):
+    :func:`make_flat_buffer` of each contig's codes, with ``add_revcomp``
+    also its reverse complement's, one INVALID between neighbours.
+    :func:`seq_index_buffer_plain` is its numpy form."""
+    if not seqs:
+        raise ValueError("cannot build an index from empty input")
+    return native.index_text(seqs, k, add_revcomp, False, _bucket)[0]
+
+
+def seq_index_buffer_plain(seqs: list[bytes], k: int,
+                           add_revcomp: bool = False) -> np.ndarray:
+    """The numpy form of :func:`seq_index_buffer`, same bytes: the plain
+    version the tests hold the native pass against."""
+    if not seqs:
+        raise ValueError("cannot build an index from empty input")
+    parts = []
+    sep = np.array([INVALID], dtype=np.uint8)
+    for s in seqs:
+        s = bytes(s)
+        parts += [encode_ascii(s), sep]
+        if add_revcomp:
+            parts += [encode_ascii(revcomp_ascii(s)), sep]
+    buf, _ = make_flat_buffer(np.concatenate(parts[:-1]), k)
+    return buf
+
+
 class DeviceSeqIndex:
     """An ephemeral, device-built find index: the sequences' sorted 3-bit
     window keys. No host SBWT construction -- for one-shot ``find`` runs
     where building the full index dominates wall time. Supports the MS
     value path only (find/matches); map/call refinement needs the full
-    :class:`SbwtIndex`.
+    :class:`SbwtIndex`. The build's host clock goes to the run's stats as
+    :class:`DeviceFullIndex`'s does.
     """
 
     def __init__(self, seqs: list[bytes], k: int, add_revcomp: bool = False,
                  device=None):
-        if not seqs:
-            raise ValueError("cannot build an index from empty input")
         with stage("build_pack"):
-            parts = []
-            sep = np.array([INVALID], dtype=np.uint8)
-            for s in seqs:
-                s = bytes(s)
-                parts += [encode_ascii(s), sep]
-                if add_revcomp:
-                    parts += [encode_ascii(revcomp_ascii(s)), sep]
-            buf, _ = make_flat_buffer(np.concatenate(parts[:-1]), k)
+            buf = seq_index_buffer(seqs, k, add_revcomp)
+            get_stats().add("build_pack_bytes", buf.size)
         self.device = resolve_device(device)
         with stage("build_sort"):
             self.ref_words, n_kmers = _seq_keys3(
@@ -947,6 +970,39 @@ def _build_full_core(buf, k: int):
     return keys3, row_pos, keys2, cap2, meta
 
 
+def full_index_buffer(seqs: list[bytes], k: int, add_revcomp: bool = False):
+    """A :class:`DeviceFullIndex`'s construction buffer, written from the
+    contigs' raw bytes by the native library (:func:`native.index_text`):
+    (buf uint8 [_bucket(n)], n), the text ``buf[:n]`` holding k '$' (0)
+    codes before each maximal ACGT segment of each contig, then with
+    ``add_revcomp`` of its reverse complement (a literal '$' breaks as any
+    non-ACGT byte does, as in :func:`split_segments`), INVALID after.
+    :func:`full_index_buffer_plain` is its numpy form."""
+    buf, n = native.index_text(seqs, k, add_revcomp, True, _bucket)
+    assert n, "cannot build an index from empty input"
+    return buf, n
+
+
+def full_index_buffer_plain(seqs: list[bytes], k: int,
+                            add_revcomp: bool = False):
+    """The numpy form of :func:`full_index_buffer`, same bytes: the plain
+    version the tests hold the native pass against."""
+    parts = []
+    for s in seqs:
+        s = bytes(s)
+        segs = split_segments(encode_ascii(s))
+        if add_revcomp:
+            segs += split_segments(encode_ascii(revcomp_ascii(s)))
+        for seg in segs:
+            parts.append(np.zeros(k, dtype=np.uint8))
+            parts.append(seg)
+    assert parts, "cannot build an index from empty input"
+    text = np.concatenate(parts)
+    buf = np.full(_bucket(text.size), INVALID, dtype=np.uint8)
+    buf[: text.size] = text
+    return buf, text.size
+
+
 class DeviceFullIndex(DeviceIndex):
     """An SBWT index built and kept on a device (counterpart of
     kbo_tpu.kernels.ms.DeviceFullIndex; reference build path:
@@ -961,28 +1017,19 @@ class DeviceFullIndex(DeviceIndex):
     tail after ``n_rows`` (see :func:`_build_full_core`). The rank
     bitvectors are never built: no query path of the device execution
     reads them. Only the six metadata scalars cross to the host. The host
-    clock of the build goes to the run's stats: ``build_pack`` (the text
-    made on the host), ``build_sort`` (its upload and the sorts' launches)
-    and ``build_fetch`` (the scalars), as for :class:`DeviceSeqIndex`.
+    clock of the build goes to the run's stats: ``build_pack`` (the
+    construction buffer written on the host, its bytes counted as
+    ``build_pack_bytes``), ``build_sort`` (its upload and the sorts'
+    launches) and ``build_fetch`` (the scalars), as for
+    :class:`DeviceSeqIndex`.
     """
 
     def __init__(self, seqs: list[bytes], k: int, add_revcomp: bool = False,
                  device=None):
         assert 1 < k < 64
         with stage("build_pack"):
-            parts = []
-            for s in seqs:
-                s = bytes(s)
-                segs = split_segments(encode_ascii(s))
-                if add_revcomp:
-                    segs += split_segments(encode_ascii(revcomp_ascii(s)))
-                for seg in segs:
-                    parts.append(np.zeros(k, dtype=np.uint8))
-                    parts.append(seg)
-            assert parts, "cannot build an index from empty input"
-            text = np.concatenate(parts)
-            buf = np.full(_bucket(text.size), INVALID, dtype=np.uint8)
-            buf[: text.size] = text
+            buf, n = full_index_buffer(seqs, k, add_revcomp)
+            get_stats().add("build_pack_bytes", buf.size)
         self.device = resolve_device(device)
         # the tables are plain attributes here, where DeviceIndex uploads
         # keys3 at its first read; lcs3 and rows_packed stay lazy
@@ -990,7 +1037,7 @@ class DeviceFullIndex(DeviceIndex):
             self.keys3, self.row_pos, self.keys2, self.cap2, meta = (
                 _build_full_core(torch.from_numpy(buf).to(self.device), k)
             )
-        self.text = text  # host copy of the construction buffer
+        self.text = buf[:n]  # host copy of the construction text
         with stage("build_fetch"):
             meta = meta.cpu().numpy()
         self.n_rows = int(meta[0])

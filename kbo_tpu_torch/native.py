@@ -1,11 +1,11 @@
 """The port's native host library, in C++ (``native_src/``): the map
-upload's 2-bit pack and the FASTA/FASTQ scanner (``pack.cpp``,
-``fastx.cpp``), and the single-core engine (``kbo_cpu.cpp``,
-``kbo_refine.cpp``): streaming matching statistics over the SBWT's rank
-arrays, derandomize and translate, the index build, gap filling and variant
-calling, which together run one ``kbo map`` end to end on one CPU core
-(:func:`map_e2e`), the oracle that the device path is held against at full
-size.
+upload's 2-bit pack, the device index builds' construction buffers and the
+FASTA/FASTQ scanner (``pack.cpp``, ``fastx.cpp``), and the single-core
+engine (``kbo_cpu.cpp``, ``kbo_refine.cpp``): streaming matching
+statistics over the SBWT's rank arrays, derandomize and translate, the
+index build, gap filling and variant calling, which together run one ``kbo
+map`` end to end on one CPU core (:func:`map_e2e`), the oracle that the
+device path is held against at full size.
 
 The four sources compile with ``g++`` into one shared library with a plain C
 interface under ``kbo_tpu_torch/_build/`` at first use, and load through
@@ -115,6 +115,11 @@ def lib() -> ctypes.CDLL:
                 u8p, i64p, u8p, ctypes.c_int64,
             ]
             lib.kbo_pack_ascii.restype = ctypes.c_int64
+            lib.kbo_index_text.argtypes = [
+                ctypes.POINTER(ctypes.c_char_p), i64p, i64, i32, i32, i32,
+                ctypes.c_void_p, i64,
+            ]
+            lib.kbo_index_text.restype = i64
             for name in ("fastx_scan_fasta", "fastx_scan_fastq"):
                 fn = getattr(lib, name)
                 fn.argtypes = [
@@ -155,6 +160,27 @@ def pack_ascii(ref_mat: np.ndarray, lengths):
     pos_pad[:n_exc] = exc_pos[:n_exc]
     byte_pad[:n_exc] = exc_byte[:n_exc]
     return packed4, pos_pad, byte_pad
+
+
+def index_text(seqs, k: int, add_revcomp: bool, full: bool, bucket):
+    """A device index's construction buffer, sized, then written from the
+    contigs' raw bytes in one pass: (buf uint8, text size). The sequence layout
+    (``full`` false) is ``k - 1`` INVALID, then ``text`` codes, INVALID to
+    ``k - 1 + bucket(text)``; the full layout is ``text`` codes, INVALID to
+    ``bucket(text)``. The layouts and their numpy forms are in
+    ``kernels/ms.py`` (``seq_index_buffer_plain``,
+    ``full_index_buffer_plain``)."""
+    seqs = list(map(bytes, seqs))  # bytes(b) is b: no copy
+    n = len(seqs)
+    ptrs = (ctypes.c_char_p * n)(*seqs)
+    lens = np.fromiter(map(len, seqs), dtype=np.int64, count=n)
+    fn = lib().kbo_index_text
+    text = int(fn(ptrs, lens, n, k, int(add_revcomp), int(full), None, 0))
+    buf = np.empty(bucket(text) + (0 if full else k - 1), dtype=np.uint8)
+    got = fn(ptrs, lens, n, k, int(add_revcomp), int(full),
+             buf.ctypes.data_as(ctypes.c_void_p), buf.size)
+    assert got == text
+    return buf, text
 
 
 def scan_fastx(data: bytes, fastq: bool) -> list[tuple[str, bytes]]:

@@ -1035,3 +1035,45 @@ def test_ext_walk_on_card(cuda):
     assert "host_ext_rounds" not in d
     host = kbo_tpu_torch.build([query], bo)
     assert out == api.map_(bytes(ref), host, opts, device=cuda)
+
+
+@pytest.mark.parametrize("add_revcomp", [False, True])
+def test_native_pack_builds_on_card(cuda, add_revcomp):
+    """Both index kinds built on the card from a draft of the benchmark's
+    generator (ecoli_mg1655's shape at 60 kbase: repeats, islands, 6
+    contigs), through the native pass, hold the CPU build's tables and
+    count the same build_pack_bytes."""
+    from kbo_bench import generate
+    from kbo_tpu_torch import api
+    from kbo_tpu_torch.utils.stats import get_stats, reset_stats
+
+    cfg = {
+        "k": 51, "max_error_prob": 1e-7, "gc": 0.508,
+        "reference": [{"name": "chr", "length": 60000}],
+        "repeats": [{"name": "rrn_operon", "length": 800, "copies": 3}],
+        "assembly": {"snp_every": 1000, "indel_every": 20000,
+                     "indel_len": [1, 10], "deleted_share": 0.0,
+                     "deleted_block": [500, 900], "island_share": 0.02,
+                     "island_block": [500, 900], "contigs": 6},
+    }
+    seed = 2**31 + 4423
+    ref, mids = generate.reference(cfg, seed)
+    draft = generate.assemblies(cfg, {"pool": 1}, ref, mids, seed)[0]
+    assert len(draft) > 1
+    bo = kbo_tpu_torch.BuildOpts(k=51, add_revcomp=add_revcomp)
+    packed = []
+    for device in (cuda, "cpu"):
+        reset_stats()
+        seq = api.build_device(draft, bo, device=device)
+        full = api.build_device(draft, bo, full=True, device=device)
+        packed.append((seq, full, get_stats().as_dict()["build_pack_bytes"]))
+    (gseq, gfull, gbytes), (cseq, cfull, cbytes) = packed
+    assert gbytes == cbytes > 0
+    assert gseq.n_kmers == cseq.n_kmers
+    assert torch.equal(gseq.ref_words.cpu(), cseq.ref_words)
+    assert (gfull.n_rows, gfull.n_kmers) == (cfull.n_rows, cfull.n_kmers)
+    assert np.array_equal(gfull.C, cfull.C)
+    assert np.array_equal(gfull.text, cfull.text)
+    for name in ("keys3", "row_pos", "keys2", "cap2"):
+        assert torch.equal(getattr(gfull, name).cpu(), getattr(cfull, name)), \
+            name
