@@ -516,7 +516,13 @@ def main() -> int:
     from kbo_tpu_torch.parallel import mesh as pmesh
     from kbo_tpu_torch.pipeline import pad_batch
     from kbo_tpu_torch.refine import gap_filling
-    from kbo_tpu_torch.refine.device_map import _pow2_cap, map_devref_finish
+    from kbo_tpu_torch.refine import device_map
+    from kbo_tpu_torch.refine.device_map import (
+        KeyTable,
+        _pow2_cap,
+        map_devref_finish,
+        start_caps,
+    )
     from kbo_tpu_torch.utils.stats import get_stats, reset_stats
 
     # ---- 1. probe
@@ -2460,7 +2466,7 @@ def main() -> int:
     t6e2 = time.perf_counter()
     sharded_names = model_names + [
         (mapsweep, "derandomize_translate"),
-        (pmesh, "sharded_score_gaps"), (pmesh, "sharded_resolve_variants"),
+        (device_map, "score_gaps_core"), (device_map, "resolve_variants_core"),
         (refine_mod, "left_extend_device")]
 
     def sharded_run(path, fn, rows, model=4):
@@ -2575,8 +2581,8 @@ def main() -> int:
         check_dt(f"{label} {dms.shape[0]}x{dms.shape[1]}", dms, dtl)
     # the sharded refinement's stages and the search loop, timed in phase 7
     # on the first finish's arguments
-    sg_args = ish_args["sharded_score_gaps"][0]
-    sv_args = ish_args["sharded_resolve_variants"][0]
+    sg_args = ish_args["score_gaps_core"][0]
+    sv_args = ish_args["resolve_variants_core"][0]
     le_args = ish_args["left_extend_device"][0]
     print(f"model map: map_batch_index_sharded over {n} bases on 4 model "
           f"shards equals the default map_ (launches "
@@ -2682,7 +2688,8 @@ def main() -> int:
               flush=True)
 
     # map_ by stage, as api.map_batch runs them for this one contig
-    cap_d, cap_g = _pow2_cap(Lm // 1024), _pow2_cap(Lm // 1536)
+    caps = start_caps(Lm, 1)
+    cap_d, cap_g = caps.d, caps.g
     w_grid = max(K - threshold + 1, 1)
 
     def upload():
@@ -2709,7 +2716,7 @@ def main() -> int:
             *single, map_tl, K, threshold, cap_d, cap_g, w_grid
         )
 
-    chars_dev, _packed, pieces = post()
+    _, _packed, pieces = post()
     counts = pieces["counts"].cpu().numpy()
     print(f"map candidates: pieces['counts'] = {counts.tolist()} (drops, gap "
           f"runs per contig; capacities {cap_d}, {cap_g}), anchors found "
@@ -2720,10 +2727,8 @@ def main() -> int:
 
     def finish(opts=mopts(True), tables=None):
         return map_devref_finish(
-            dev, codes_dev, map_tl, single[0], chars_dev, pieces, _packed,
-            [ref], index, opts, threshold, cap_d, cap_g,
-            total_gap_slack=cap_g * 2 + 64, ref_mat=ref_mat,
-            ref_mat_dev=ref_mat_dev, seq_tables=tables,
+            KeyTable.of(dev), codes_dev, map_tl, single, [ref], index, opts,
+            threshold, ref_mat, ref_mat_dev, tables,
         )
 
     if finish()[0] != out_t:
@@ -2734,7 +2739,7 @@ def main() -> int:
     # (its join against the sweep's table), then the whole finish
     qtab = mapsweep.ms3_rows_sweep(dev.keys3, dev.rows_packed, codes_dev, K,
                                    want_qtable=True)[3]
-    cap_ext = _pow2_cap(max(4 * cap_g, 32), lo=256)
+    cap_ext = caps.ext
 
     def gaps():
         return score_gaps_core(
@@ -2825,8 +2830,10 @@ def main() -> int:
         ("map_postprocess3_core", post, dev_ms),
         ("score_gaps_core (MapOpts())", gaps, dev_ms),
         ("resolve_variants_core with its join (MapOpts())", variants, dev_ms),
-        ("assemble + fetch + paint (host clock)", finish, host_ms),
-        ("refine + assemble + fetch + paint (MapOpts(), host clock)",
+        ("postprocess + assemble + fetch + paint (host clock)", finish,
+         host_ms),
+        ("postprocess + refine + assemble + fetch + paint (MapOpts(), host "
+         "clock)",
          lambda: finish(dopts(True), qtab), host_ms),
         ("build_ext_table_core (once per index, not per call)",
          lambda: build_ext_table_core(dev.keys3, K), dev_ms),
@@ -3129,27 +3136,25 @@ def main() -> int:
               f"{r1['stats'].get('dist_s', 0) * 1e3:.3f} ms; merge_path + "
               f"clamp_scan over both processes {both}, one process {one}",
               flush=True)
-    sg_rest = sg_args[1:]
     lk_keys, lk_rest = le_args[0], le_args[1:4]
     stage_times = {
         "Sharded3Index(4 shards)": host_ms(
             lambda: pmesh.Sharded3Index(index, mm)),
         "rows join (4 partial joins + pmax + finish)": host_ms(
             lambda: pmesh.ms3_rows_sweep_index_sharded(sidx, mcodes, mm)),
-        "sharded_score_gaps": host_ms(
-            lambda: pmesh.sharded_score_gaps(*sg_args)),
+        "score_gaps_core, 4 shards": host_ms(
+            lambda: score_gaps_core(*sg_args)),
         "score_gaps_core, one table + chain table": host_ms(
-            lambda: score_gaps_core(dev.keys3, *sg_rest[:6], *sg_rest[7:10],
-                                    get_ext_table(dev), sg_rest[6])),
+            lambda: score_gaps_core(dev.keys3, *sg_args[1:10],
+                                    get_ext_table(dev), sg_args[11])),
         "left_extend_device, 4 shards": host_ms(
             lambda: refine_mod.left_extend_device(lk_keys, *lk_rest)),
         "left_extend_device, one table (its bucket table built per call)":
             host_ms(
             lambda: refine_mod.left_extend_device(
                 dev.keys3, *lk_rest, refine_mod.bucket_table(dev.keys3))),
-        "sharded_resolve_variants": host_ms(
-            lambda: pmesh.sharded_resolve_variants(*sv_args,
-                                                   d_lo=threshold - 1)),
+        "resolve_variants_core, 4 shards": host_ms(
+            lambda: resolve_variants_core(*sv_args, d_lo=threshold - 1)),
     }
     reset_stats()
     refine_mod.left_extend_device(lk_keys, *lk_rest)

@@ -9,6 +9,8 @@ Every query runs on ``device`` -- the CUDA card when it is None; pass
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -23,12 +25,12 @@ from kbo_tpu_torch.opts import BuildOpts, CallOpts, FindOpts, MapOpts, MatchOpts
 from kbo_tpu_torch.parallel import mesh as pmesh
 from kbo_tpu_torch.refine import gap_filling, variant_calling
 from kbo_tpu_torch.refine.device_map import (
-    DevRefOverflow,
+    KeyTable,
     _canvas,
     _paint_runs,
     _pow2_cap,
-    map_devref_data_sharded,
     map_devref_finish,
+    start_caps,
 )
 from kbo_tpu_torch.utils.stats import get_stats, stage
 
@@ -221,7 +223,8 @@ def call(sbwt_query: SbwtIndex, ref_seq: bytes,
             drops=drops,
             anchors=anchors,
             anchor_rows=anchor_rows,
-            mesh=mesh,
+            ms_many=None if mesh is None else functools.partial(
+                pmesh.ms_values_many_sharded, mesh=mesh),
             device=device,
         )
     get_stats().add("variants_called", len(variants))
@@ -286,9 +289,10 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
     stats: ``map_upload`` (the pipelined chunked sweep runs inside it, as
     ``map_sweep_chunked`` with its bases, ``map_chunk_pack`` a chunk and
     the counter ``map_sweep_chunks``), ``map_sweep`` (with its bases;
-    absent on the pipelined route), ``map_postprocess``, then those of
-    :func:`~kbo_tpu_torch.refine.device_map.map_devref_finish`;
-    ``map_overflow_retries`` counts the capacity retries.
+    absent on the pipelined route), then those of
+    :func:`~kbo_tpu_torch.refine.device_map.map_devref_finish` (from
+    ``map_postprocess`` on); ``map_overflow_retries`` counts the capacity
+    retries.
 
     Every other batch (k >= 128, or too many contigs for the rows join)
     takes :func:`_map_classic`: the 2-bit sweep and the host refinement
@@ -329,11 +333,6 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
     threshold = derandomize.random_match_threshold(
         k, query_sbwt.n_kmers, 4, opts.max_error_prob
     )
-    # optimistic capacities: only a denser-than-expected input pays a
-    # second pass. Drops (SNP sites) run ~1/kb on same-species pairs;
-    # gap runs are rarer and cost more per slot in the refinement
-    cap_d = _pow2_cap(L // 1024)
-    cap_g = _pow2_cap(L // 1536, lo=256)
 
     # single-contig maps reuse the sweep's sorted query window keys as
     # the variant join's table (kernels/refine.py resolve_variants_core
@@ -360,8 +359,8 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
         (ref_mat_dev, codes_dev, ms_dev, uniq_dev, rows_dev,
          seq_tables) = pipelined
     else:
-        # the join stage is cap-independent: the capacity-overflow retry
-        # below re-runs only the postprocess stage
+        # the join stage is cap-independent: a capacity-overflow retry
+        # re-runs only the refinement
         with stage("map_sweep", bases=int(seq_lens.sum())):
             if chunk:
                 out = mapsweep.ms3_rows_sweep_chunked(
@@ -376,28 +375,11 @@ def map_batch(ref_seqs: list[bytes], query_sbwt: SbwtIndex,
         ms_dev, uniq_dev, rows_dev = out[:3]
         seq_tables = out[3] if want_qt else None
 
-    # the gap-candidate window never exceeds k - threshold + 1
-    # positions (mapsweep.map_postprocess3_core docstring)
-    w_grid = max(k - threshold + 1, 1)
-    while True:
-        with stage("map_postprocess"):
-            chars_dev, packed_dev, pieces = mapsweep.map_postprocess3_core(
-                ms_dev, uniq_dev, rows_dev, lengths_dev, k, threshold,
-                cap_d, cap_g, w_grid,
-            )
-        try:
-            return map_devref_finish(
-                dev, codes_dev, lengths_dev, ms_dev, chars_dev, pieces,
-                packed_dev, ref_seqs, query_sbwt, opts, threshold,
-                cap_d, cap_g, total_gap_slack=cap_g * 2 + 64,
-                ref_mat=ref_mat, ref_mat_dev=ref_mat_dev,
-                seq_tables=seq_tables,
-            )
-        except DevRefOverflow as o:
-            # grow only the overflowed capacity
-            get_stats().add("map_overflow_retries")
-            cap_d = max(cap_d, _pow2_cap(o.need_d))
-            cap_g = max(cap_g, _pow2_cap(o.need_g))
+    return map_devref_finish(
+        KeyTable.of(dev), codes_dev, lengths_dev, (ms_dev, uniq_dev, rows_dev),
+        ref_seqs, query_sbwt, opts, threshold, ref_mat, ref_mat_dev,
+        seq_tables,
+    )
 
 
 def _map_batch_mesh(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
@@ -410,7 +392,7 @@ def _map_batch_mesh(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
        and the rows join's slot budget per chunk: the sequence-sharded map
        (:func:`kbo_tpu_torch.parallel.mesh.map_seq_sharded`);
     2. the budget per shard's contigs: the contig-sharded map
-       (:func:`kbo_tpu_torch.refine.device_map.map_devref_data_sharded`),
+       (:func:`kbo_tpu_torch.parallel.mesh.map_devref_data_sharded`),
        unless it returns None (a gap for the host evaluator);
     3. else the classic mesh sweep (:func:`_map_classic` with the mesh).
 
@@ -440,8 +422,8 @@ def _map_batch_mesh(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
                 k, query_sbwt.n_kmers, 4, opts.max_error_prob
             )
             with stage("map_sweep", bases=sum(len(r) for r in ref_seqs)):
-                out = map_devref_data_sharded(ref_seqs, query_sbwt, code_list,
-                                              opts, threshold, mesh)
+                out = pmesh.map_devref_data_sharded(
+                    ref_seqs, query_sbwt, code_list, opts, threshold, mesh)
             if out is not None:
                 stats.add("mesh_route_data")
                 return out
@@ -558,15 +540,14 @@ def _map_classic(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
                     parts,
                 ))
 
-        # optimistic capacities, as on the rows path
-        cap_d = _pow2_cap(L // 1024)
-        cap_g = _pow2_cap(L // 1536, lo=256)
-        packed = fetch(cap_d, cap_g)
+        # the rows path's capacities, grown once to the exact need
+        caps = start_caps(L, Q)
+        packed = fetch(caps.d, caps.g)
+        need_d, need_g = (int(n) for n in packed[:, :2].max(0))
+        if need_d > caps.d or need_g > caps.g:
+            caps = caps.grown(need_d, need_g)
+            packed = fetch(caps.d, caps.g)
         counts = packed[:, :2]
-        if int(counts[:, 0].max()) > cap_d or int(counts[:, 1].max()) > cap_g:
-            cap_d = max(cap_d, _pow2_cap(int(counts[:, 0].max())))
-            cap_g = max(cap_g, _pow2_cap(int(counts[:, 1].max())))
-            packed = fetch(cap_d, cap_g)
         packed = packed[:, 2:]
 
     call_opts = CallOpts(max_error_prob=opts.max_error_prob,
@@ -580,8 +561,8 @@ def _map_classic(ref_seqs: list[bytes], query_sbwt, opts: MapOpts,
         nd, ng = int(counts[q, 0]), int(counts[q, 1])
         drops = packed[q, :nd].astype(np.int64)
         runs = list(zip(
-            packed[q, cap_d : cap_d + ng].tolist(),
-            packed[q, cap_d + cap_g : cap_d + cap_g + ng].tolist(),
+            packed[q, caps.d : caps.d + ng].tolist(),
+            packed[q, caps.d + caps.g : caps.d + caps.g + ng].tolist(),
         ))
         with stage("map_intervals"):
             ivals = engine.SparseIntervals(

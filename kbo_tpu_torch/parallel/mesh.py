@@ -61,8 +61,8 @@ from kbo_tpu_torch import engine
 from kbo_tpu_torch.index.encode import encode_ascii
 from kbo_tpu_torch.kernels.mapsweep import (
     _ms3_rows_chunk,
-    map_postprocess3_core,
     map_sweep_compact_core,
+    ms3_rows_sweep,
 )
 from kbo_tpu_torch.kernels.ms import (
     INVALID,
@@ -80,7 +80,6 @@ from kbo_tpu_torch.kernels.refine import (
     ShardedKeys3,
     get_ext_table,
     max_tag,
-    prob_bound,
     resolve_variants_core,
     score_gaps_core,
     seq_keys3_tagged_core,
@@ -96,6 +95,12 @@ from kbo_tpu_torch.pipeline import (
     matches_pipeline_core,
     pack_codes_host,
     pad_batch,
+)
+from kbo_tpu_torch.refine.device_map import (
+    KeyTable,
+    devref_core,
+    devref_sharded_finish,
+    map_devref_finish,
 )
 from kbo_tpu_torch.utils.stats import stage
 
@@ -594,16 +599,83 @@ def map_sweep_compact_sharded(index, codes: np.ndarray, lengths: np.ndarray,
 
 
 class _SeqShardedDev:
-    """The per-call holder refine.device_map.map_devref_finish's
-    sequence-sharded branch reads: the index replicas per shard (kept on
-    the index by :func:`index_replicas`), the mesh and each shard's
-    context chunk."""
+    """The sequence-sharded map's view of the key table, which
+    refine.device_map.devref_core reads through its two operations: the
+    index replicas per shard (kept on the index by :func:`index_replicas`),
+    the mesh and each shard's context chunk."""
 
     def __init__(self, replicas, k: int, mesh: Mesh, ctx_chunks):
         self.replicas = replicas
         self.k = k
-        self.seq_mesh = mesh
+        self.mesh = mesh
         self.ctx_chunks = ctx_chunks
+
+    def score_gaps(self, ref_mat, lengths, gap_start, gap_end_at, grid,
+                   threshold: int, k: int, cap_g: int, cap_ext: int,
+                   bound: float):
+        """kernels.refine.score_gaps_core with the CANDIDATE SLOTS split
+        over the shards: each scores cap_g / n of the compacted gap runs
+        against its replica of the key table and extension table (the
+        reference matrix and lengths copied to it). The patch grids gather
+        (their order does not matter to the scatter-max assembly),
+        ``needs_host`` is laid back into the [Q * cap_g] slot order, the
+        counters sum; across processes too, so that every process holds all
+        of them."""
+        mesh = self.mesh
+        nd = mesh.shape["data"]
+        Q = gap_start.shape[0]
+        capp = -(-cap_g // nd) * nd
+        gs, ge, gr = (gap_start[:, :cap_g], gap_end_at[:, :cap_g],
+                      grid[:, :cap_g])
+        if capp != cap_g:
+            pad = capp - cap_g
+            gs = torch.cat([gs, gs.new_full((Q, pad), _BIG32)], dim=1)
+            ge = torch.cat([ge, ge.new_full((Q, pad), _BIG32)], dim=1)
+            gr = torch.cat([gr, gr.new_full((Q, pad, gr.shape[2]), -1)],
+                           dim=1)
+        cap_gl = capp // nd
+
+        def shard(s, dv, rm, le):
+            sl = slice(s * cap_gl, (s + 1) * cap_gl)
+            d = dv.device
+            return score_gaps_core(
+                dv.keys3, rm, le, gs[:, sl].to(d), ge[:, sl].to(d),
+                gr[:, sl].to(d), threshold, k, cap_gl, cap_ext,
+                get_ext_table(dv), bound,
+            )
+
+        parts = map_shards(mesh, shard, range(nd), self.replicas,
+                           replicate(mesh, ref_mat), replicate(mesh, lengths))
+        needs_host = all_gather(
+            mesh,
+            [None if p is None else p[2].reshape(Q, cap_gl) for p in parts],
+            dim=1,
+        )[:, :cap_g].reshape(-1)
+        return (all_gather(mesh, pick(parts, 0)),
+                all_gather(mesh, pick(parts, 1)), needs_host,
+                psum(mesh, pick(parts, 3)))
+
+    def resolve_variants(self, codes, ref_mat, ms, lengths, drop_pos, apos,
+                         arow, d: int, k: int, cap_d: int, d_lo: int,
+                         seq_tables=None, revcomp: bool = False):
+        """kernels.refine.resolve_variants_core with the rk-vs-sequence join
+        table SEQUENCE-SHARDED: each shard sorts only its chunk's tagged
+        window keys (chunk + k-1 real context) on its own device, the
+        probes join each and the best is maxed over the shards (exact:
+        every true window lies in one chunk; a context-region duplicate can
+        only score lower), this process's chunks first, then over the
+        processes. The rest runs once (per process), on the first local
+        device. The chunks are the forward strand's own tables
+        (:func:`map_seq_sharded` refuses ``revcomp``; ``seq_tables`` are
+        the single card's)."""
+        mesh = self.mesh
+        tables = map_shards(mesh, lambda cc: seq_keys3_tagged_core(cc, k),
+                            self.ctx_chunks)
+        return resolve_variants_core(
+            self.replicas[mesh.local_shards[0]].keys3, _local(mesh, tables),
+            codes, ref_mat, ms, lengths, drop_pos, apos, arow, d, k, cap_d,
+            d_lo=d_lo, reduce=ProcessReduce(mesh),
+        )
 
 
 def _seqsh_stage1(holder: _SeqShardedDev, L: int):
@@ -612,73 +684,12 @@ def _seqsh_stage1(holder: _SeqShardedDev, L: int):
     device of every process."""
     k = holder.k
     parts = map_shards(
-        holder.seq_mesh,
+        holder.mesh,
         lambda dv, cc: _ms3_rows_chunk(dv.keys3, dv.rows_packed, cc, k),
         holder.replicas, holder.ctx_chunks,
     )
-    return tuple(all_gather(holder.seq_mesh, pick(parts, j), dim=1)[:, :L]
+    return tuple(all_gather(holder.mesh, pick(parts, j), dim=1)[:, :L]
                  for j in range(3))
-
-
-def seqsh_score_gaps(holder: _SeqShardedDev, ref_mat, lengths, gap_start,
-                     gap_end_at, grid, threshold: int, bound: float, k: int,
-                     cap_g: int, cap_ext: int):
-    """kernels.refine.score_gaps_core with the CANDIDATE SLOTS split over
-    the shards: each scores cap_g / n of the compacted gap runs against
-    its replica of the key table and extension table (the reference matrix
-    and lengths copied to it). The patch grids gather (their order does not
-    matter to the scatter-max assembly), ``needs_host`` is laid back into
-    the [Q * cap_g] slot order, the counters sum; across processes too, so
-    that every process holds all of them."""
-    mesh = holder.seq_mesh
-    nd = mesh.shape["data"]
-    Q = gap_start.shape[0]
-    capp = -(-cap_g // nd) * nd
-    gs, ge, gr = gap_start[:, :cap_g], gap_end_at[:, :cap_g], grid[:, :cap_g]
-    if capp != cap_g:
-        pad = capp - cap_g
-        gs = torch.cat([gs, gs.new_full((Q, pad), _BIG32)], dim=1)
-        ge = torch.cat([ge, ge.new_full((Q, pad), _BIG32)], dim=1)
-        gr = torch.cat([gr, gr.new_full((Q, pad, gr.shape[2]), -1)], dim=1)
-    cap_gl = capp // nd
-
-    def shard(s, dv, rm, le):
-        sl = slice(s * cap_gl, (s + 1) * cap_gl)
-        d = dv.device
-        return score_gaps_core(
-            dv.keys3, rm, le, gs[:, sl].to(d), ge[:, sl].to(d),
-            gr[:, sl].to(d), threshold, k, cap_gl, cap_ext,
-            get_ext_table(dv), bound,
-        )
-
-    parts = map_shards(mesh, shard, range(nd), holder.replicas,
-                       replicate(mesh, ref_mat), replicate(mesh, lengths))
-    needs_host = all_gather(
-        mesh, [None if p is None else p[2].reshape(Q, cap_gl) for p in parts],
-        dim=1,
-    )[:, :cap_g].reshape(-1)
-    return (all_gather(mesh, pick(parts, 0)), all_gather(mesh, pick(parts, 1)),
-            needs_host, psum(mesh, pick(parts, 3)))
-
-
-def seqsh_resolve_variants(holder: _SeqShardedDev, codes, ref_mat, ms,
-                           lengths, drop_pos, apos, arow, d: int, k: int,
-                           cap_d: int, d_lo: int = 0):
-    """kernels.refine.resolve_variants_core with the rk-vs-sequence join
-    table SEQUENCE-SHARDED: each shard sorts only its chunk's tagged window
-    keys (chunk + k-1 real context) on its own device, the probes join each
-    and the best is maxed over the shards (exact: every true window lies in
-    one chunk; a context-region duplicate can only score lower), this
-    process's chunks first, then over the processes. The rest runs once
-    (per process), on the first local device."""
-    mesh = holder.seq_mesh
-    tables = map_shards(mesh, lambda cc: seq_keys3_tagged_core(cc, k),
-                        holder.ctx_chunks)
-    return resolve_variants_core(
-        holder.replicas[mesh.local_shards[0]].keys3, _local(mesh, tables),
-        codes, ref_mat, ms, lengths, drop_pos, apos, arow, d, k, cap_d,
-        d_lo=d_lo, reduce=ProcessReduce(mesh),
-    )
 
 
 def map_seq_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
@@ -686,15 +697,9 @@ def map_seq_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
                     code_list=None) -> list[bytes]:
     """Batched ``map_`` with the SEQUENCE position-sharded over the
     ``data`` axis: one genome uses every shard, where the contig-sharded
-    map (refine.device_map.map_devref_data_sharded) cannot split the
-    single-pair workload. The same single-fetch refinement as the
-    single-device map, and byte for byte its output."""
-    from kbo_tpu_torch.refine.device_map import (
-        DevRefOverflow,
-        _pow2_cap,
-        map_devref_finish,
-    )
-
+    map (:func:`map_devref_data_sharded`) cannot split the single-pair
+    workload. The same single-fetch refinement as the single-device map
+    (refine.device_map.map_devref_finish), and byte for byte its output."""
     opts = map_opts or MapOpts()
     if not ref_seqs:
         return []
@@ -737,26 +742,12 @@ def map_seq_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
     lengths_dev = torch.from_numpy(lengths).to(d0)
     ref_mat_dev = torch.from_numpy(ref_mat).to(d0)
     with stage("map_sweep", bases=sum(c.size for c in code_list)):
-        ms_dev, uniq_dev, rows_dev = _seqsh_stage1(holder, L)
-        cap_d = _pow2_cap(L // 1024)
-        cap_g = _pow2_cap(L // 1536, lo=256)
-        while True:
-            with device_scope(d0):
-                chars_dev, packed_dev, pieces = map_postprocess3_core(
-                    ms_dev, uniq_dev, rows_dev, lengths_dev, k, threshold,
-                    cap_d, cap_g, max(k - threshold + 1, 1),
-                )
-                try:
-                    return map_devref_finish(
-                        holder, codes_dev, lengths_dev, ms_dev, chars_dev,
-                        pieces, packed_dev, ref_seqs, query_sbwt, opts,
-                        threshold, cap_d, cap_g,
-                        total_gap_slack=cap_g * 2 + 64, ref_mat=ref_mat,
-                        ref_mat_dev=ref_mat_dev,
-                    )
-                except DevRefOverflow as o:
-                    cap_d = _pow2_cap(o.need_d)
-                    cap_g = _pow2_cap(o.need_g)
+        sweep = _seqsh_stage1(holder, L)
+        with device_scope(d0):
+            return map_devref_finish(
+                holder, codes_dev, lengths_dev, sweep, ref_seqs, query_sbwt,
+                opts, threshold, ref_mat, ref_mat_dev,
+            )
 
 
 # ------------------------------------------- prefix-sharded index placement
@@ -952,32 +943,6 @@ def ms3_rows_sweep_index_sharded(sidx: Sharded3Index, codes, mesh: Mesh):
     return _group_rows_join(sidx, 0, codes)
 
 
-def sharded_score_gaps(sidx: Sharded3Index, ref_mat, lengths, gap_start,
-                       gap_end_at, grid, threshold: int, bound: float, k: int,
-                       cap_ge: int, cap_ext: int):
-    """kernels.refine.score_gaps_core over the sharded table (the first
-    local data row's model group): the candidate k-mer unpacks sum the
-    shards' rows, and the left extension's searches run per shard with an
-    OR (the search loop); the rest runs once on the group's first local
-    device, where the inputs live."""
-    return score_gaps_core(sidx.group(), ref_mat, lengths, gap_start,
-                           gap_end_at, grid, threshold, k, cap_ge, cap_ext,
-                           None, bound)
-
-
-def sharded_resolve_variants(sidx: Sharded3Index, seq_words, codes, ref_mat,
-                             ms, lengths, drop_pos, apos, arow, d: int,
-                             k: int, cap_d: int, d_lo: int = 0):
-    """kernels.refine.resolve_variants_core over the sharded table (the
-    first local data row's model group): the reference k-mer unpack sums
-    the shards' rows; the rk-vs-sequence join runs once on the group's
-    first local device (it joins against the SEQUENCE keys ``seq_words``,
-    not the index)."""
-    return resolve_variants_core(sidx.group(), seq_words, codes, ref_mat,
-                                 ms, lengths, drop_pos, apos, arow, d, k,
-                                 cap_d, d_lo=d_lo)
-
-
 def _sharded_map_setup(ref_seqs, query_sbwt, opts, what: str):
     """(threshold, code list, padded codes, lengths) of a map over a
     sharded table; refuses what kbo_tpu's refuses."""
@@ -1001,18 +966,11 @@ def map_batch_index_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
     one-axis ``model`` mesh (the larger-than-one-card placement of the map
     path; ``find`` has :func:`matches_batch_index_sharded`): the rows join
     by shard with one pmax per pack, then the single-device map's
-    single-fetch refinement (refine.device_map.map_devref_finish) with the
-    table's unpacks and searches per shard (:func:`sharded_score_gaps`,
-    :func:`sharded_resolve_variants`), again at larger capacities when the
-    candidates overflowed. Gaps the device flags go to the exact host
-    evaluator. Byte for byte the single-device map's output. No API entry
-    point takes a ``model`` mesh: call this directly."""
-    from kbo_tpu_torch.refine.device_map import (
-        DevRefOverflow,
-        _pow2_cap,
-        map_devref_finish,
-    )
-
+    single-fetch refinement (refine.device_map.map_devref_finish) over the
+    model group's ShardedKeys3 (its unpacks and searches per shard, the
+    rest once on the first local device). Gaps the device flags go to the
+    exact host evaluator. Byte for byte the single-device map's output. No
+    API entry point takes a ``model`` mesh: call this directly."""
     opts = map_opts or MapOpts()
     if not ref_seqs:
         return []
@@ -1032,25 +990,12 @@ def map_batch_index_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
     lengths_dev = torch.from_numpy(lengths).to(d0)
     ref_mat_dev = torch.from_numpy(ref_mat).to(d0)
     with stage("map_sweep", bases=sum(c.size for c in code_list)):
-        ms_dev, uniq_dev, rows_dev = _group_rows_join(sidx, 0, codes_dev)
-        cap_d = cap_g = _pow2_cap(L // 512)
-        while True:
-            with device_scope(d0):
-                chars_dev, packed_dev, pieces = map_postprocess3_core(
-                    ms_dev, uniq_dev, rows_dev, lengths_dev, k, threshold,
-                    cap_d, cap_g, max(k - threshold + 1, 1),
-                )
-                try:
-                    return map_devref_finish(
-                        sidx, codes_dev, lengths_dev, ms_dev, chars_dev,
-                        pieces, packed_dev, ref_seqs, query_sbwt, opts,
-                        threshold, cap_d, cap_g,
-                        total_gap_slack=cap_g * 2 + 64, ref_mat=ref_mat,
-                        ref_mat_dev=ref_mat_dev,
-                    )
-                except DevRefOverflow as o:
-                    cap_d = _pow2_cap(o.need_d)
-                    cap_g = _pow2_cap(o.need_g)
+        sweep = _group_rows_join(sidx, 0, codes_dev)
+        with device_scope(d0):
+            return map_devref_finish(
+                KeyTable(sidx.group()), codes_dev, lengths_dev, sweep,
+                ref_seqs, query_sbwt, opts, threshold, ref_mat, ref_mat_dev,
+            )
 
 
 def matches_batch_index_sharded(index, code_list: list[np.ndarray],
@@ -1109,27 +1054,20 @@ def _stage1_2d(sidx: Sharded3Index, codes_p):
 
 
 def _stage2_2d(sidx: Sharded3Index, codes_p, ref_p, len_p, sweep_p,
-               threshold: int, bound: float, k: int, opts, cap_d: int,
-               cap_g: int, cap_ext: int, cap_r: int) -> np.ndarray:
+               threshold: int, opts, caps) -> np.ndarray:
     """refine.device_map.devref_core per local data row with its model
     group's sharded table (the search loop's left extension, no chain
-    table: it syncs once a round); the delta blocks [n_data, 4, cap_r] are
-    fetched together after the last row, the processes' rows meeting in
-    distributed.gather_to_host."""
-    from kbo_tpu_torch.refine.device_map import devref_core
-
+    table: it syncs once a round); the delta blocks [n_data, 4, caps.r]
+    are fetched together after the last row, the processes' rows meeting
+    in distributed.gather_to_host."""
     mesh = sidx.model_mesh
     blocks = [None] * len(codes_p)
     for i in _local_rows(mesh):
         co, rm, le, sw = codes_p[i], ref_p[i], len_p[i], sweep_p[i]
         with device_scope(co.device):
             blocks[i] = devref_core(
-                sidx.group(i), co, rm, le, *sw, threshold, k, cap_d, cap_g,
-                cap_ext, cap_r, bool(opts.fill_gaps),
-                bool(opts.call_variants), bool(opts.format),
-                d_lo=max(threshold - 1, 0), w_grid=max(k - threshold + 1, 1),
-                ext_tab=None, bound=bound,
-            )[0][None]
+                KeyTable(sidx.group(i)), sidx.k, co, rm, le, sw, threshold,
+                caps, opts).delta(caps.r)[None]
     return gather_to_host(mesh, blocks, _local_rows(mesh))
 
 
@@ -1144,8 +1082,6 @@ def map_batch_2d_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
     blocks. Byte for byte the single-device map's output, or None when a
     gap needs the exact host evaluator (as kbo_tpu's: callers take a 1-D
     path then). No API entry point takes this mesh: call this directly."""
-    from kbo_tpu_torch.refine.device_map import devref_sharded_finish
-
     opts = map_opts or MapOpts()
     if not ref_seqs:
         return []
@@ -1174,11 +1110,48 @@ def map_batch_2d_sharded(ref_seqs: list[bytes], query_sbwt, map_opts=None,
             if i in local else None for i in range(nd)]
 
     codes_p, ref_p, len_p = (blocks_of(a) for a in (codes, ref_mat, lengths))
-    bound = prob_bound(opts.max_error_prob)
     with stage("map_sweep", bases=sum(c.size for c in code_list)):
         sweep_p = _stage1_2d(sidx, codes_p)
         return devref_sharded_finish(
             ref_seqs, ref_mat, nd, opts,
-            lambda *caps: _stage2_2d(sidx, codes_p, ref_p, len_p, sweep_p,
-                                     threshold, bound, k, opts, *caps),
+            lambda caps: _stage2_2d(sidx, codes_p, ref_p, len_p, sweep_p,
+                                    threshold, opts, caps),
         )
+
+
+# ------------------------------------- contig-sharded map over ``data``
+
+
+def map_devref_data_sharded(ref_seqs, query_sbwt, code_list, opts,
+                            threshold: int, mesh: Mesh):
+    """Contig-sharded single-fetch map over a ``data`` mesh: the 3-bit
+    sweep AND the refinement (refine.device_map.devref_core) run per shard
+    on its replica of the index; the host pays one gather of the per-shard
+    [4, caps.r] delta blocks (refine.device_map.devref_sharded_finish),
+    again at larger capacities when candidates or runs overflowed. Returns
+    None when a gap needs the exact host evaluator: the caller takes the
+    classic mesh sweep (kbo_tpu_torch.api._map_classic), so correctness
+    never rests on this path."""
+    k = query_sbwt.k
+    nd = mesh.devices.size
+    codes, lengths = pad_rows(*pad_batch(code_list, bucket=True), nd)
+    Q, L = codes.shape
+    ref_mat = ref_matrix(ref_seqs, Q, L)
+    reps = index_replicas(query_sbwt, mesh)
+    codes_p = shard_rows(mesh, codes)
+    ref_p = shard_rows(mesh, ref_mat)
+    len_p = shard_rows(mesh, lengths)
+    sweep_p = map_shards(
+        mesh, lambda dv, co: ms3_rows_sweep(dv.keys3, dv.rows_packed, co, k),
+        reps, codes_p,
+    )
+
+    def run(caps):
+        def shard(dv, co, rm, le, sw):
+            return devref_core(KeyTable.of(dv), k, co, rm, le, sw, threshold,
+                               caps, opts).delta(caps.r)[None]
+
+        return gather_to_host(mesh, map_shards(
+            mesh, shard, reps, codes_p, ref_p, len_p, sweep_p))
+
+    return devref_sharded_finish(ref_seqs, ref_mat, nd, opts, run)

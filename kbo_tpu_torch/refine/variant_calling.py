@@ -140,7 +140,7 @@ def call_variants(
     drops: np.ndarray | None = None,
     anchors: np.ndarray | None = None,
     anchor_rows: np.ndarray | None = None,
-    mesh=None,
+    ms_many=None,
     device=None,
 ) -> list[Variant]:
     """Call all variants between `query` and the reference index.
@@ -159,9 +159,10 @@ def call_variants(
     3. the query k-mer ending at each anchor and the reference k-mer of its
        row re-run against the other side, both batches on the device and
        fetched together as ONE uint8 transfer, then the vectorized case
-       analysis (:func:`_resolve_all`). With a ``data`` ``mesh``
-       (kbo_tpu_torch.parallel.mesh) the re-runs against an index shard
-       over it; the other phases run on ``device``.
+       analysis (:func:`_resolve_all`). ``ms_many(index, codes)`` takes
+       the re-runs against an index instead (a ``data`` mesh's sharded
+       form, kbo_tpu_torch.parallel.mesh.ms_values_many_sharded); the
+       other phases run on ``device``.
 
     ``sbwt_query`` is an :class:`SbwtIndex` or a raw code array (the
     reference's build-an-index-inside-call(), src/lib.rs:553: its k-mer
@@ -221,16 +222,12 @@ def call_variants(
         qk_codes = list(qk_mat.astype(np.uint8))
         rk_codes = [ref_kmers_codes[t] for t in range(len(sites))]
 
-        if mesh is not None:
-            # the re-runs against an index shard over the mesh's ``data``
-            # axis; those against the raw sequence stay on one device
-            from kbo_tpu_torch.parallel.mesh import ms_values_many_sharded
-
-            ms_vs_ref = np.stack(
-                ms_values_many_sharded(sbwt_ref, qk_codes, mesh))
+        if ms_many is not None:
+            # the re-runs against an index by the caller's form; those
+            # against the raw sequence stay on one device
+            ms_vs_ref = np.stack(ms_many(sbwt_ref, qk_codes))
             if isinstance(sbwt_query, SbwtIndex):
-                ms_vs_query = np.stack(
-                    ms_values_many_sharded(sbwt_query, rk_codes, mesh))
+                ms_vs_query = np.stack(ms_many(sbwt_query, rk_codes))
             else:
                 ms_vs_query = np.stack(engine.compute_ms_values_vs_seq(
                     sbwt_query, rk_codes, k, device))

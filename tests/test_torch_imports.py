@@ -16,6 +16,8 @@ FILES = sorted((ROOT / "kbo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"
 
 
 def _imported_modules(path: Path) -> list[str]:
+    """Every absolute import of a file, inside functions too: ``import a.b``
+    gives a.b, ``from a import b`` both a and a.b."""
     tree = ast.parse(path.read_text(), filename=str(path))
     mods = []
     for node in ast.walk(tree):
@@ -23,6 +25,7 @@ def _imported_modules(path: Path) -> list[str]:
             mods += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             mods.append(node.module or "")
+            mods += [f"{node.module}.{a.name}" for a in node.names]
     return mods
 
 
@@ -53,6 +56,19 @@ def test_no_banned_imports(banned):
             top = mod.split(".")[0]
             if top == banned:
                 bad.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("layer", ["refine", "kernels"])
+def test_lower_layers_import_nothing_from_parallel(layer):
+    """The refinement and the kernels sit below the mesh layer: they take
+    what a mesh route hands them (a key table's view, a reducer) and import
+    nothing of kbo_tpu_torch.parallel, at the top or inside a function."""
+    paths = sorted((ROOT / "kbo_tpu_torch" / layer).rglob("*.py"))
+    assert paths
+    bad = [f"{path.relative_to(ROOT)}: {mod}" for path in paths
+           for mod in _imported_modules(path)
+           if mod.split(".")[:2] == ["kbo_tpu_torch", "parallel"]]
     assert not bad, bad
 
 

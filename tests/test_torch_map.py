@@ -9,6 +9,8 @@ port carries over); kbo_tpu.api.map_ sends inputs under 256 bases to the
 host oracle, a second, independent check. Outputs are equal byte for byte.
 """
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,6 @@ import torch
 import kbo_tpu
 import kbo_tpu_torch
 from kbo_tpu import api as japi
-from kbo_tpu_torch import api as tapi
 from kbo_tpu_torch.kernels import mapsweep as tmap
 from kbo_tpu_torch.kernels import ms as tms
 from kbo_tpu_torch.kernels import refine as refine_kernels
@@ -141,7 +142,8 @@ def test_map_doctests(fmt, want):
 @pytest.mark.parametrize("fmt", [True, False])
 def test_map_overflow_retry(fmt, monkeypatch):
     """A dense-SNP contig has more drops than cap_d = 256: the first
-    assembly raises DevRefOverflow and the retry's output is kbo_tpu's."""
+    attempt overflows, the capacities grow once and the retry's output is
+    kbo_tpu's."""
     k = 11
     rng = np.random.default_rng(21)
     query = bytearray(BASES[rng.integers(0, 4, 6000)].tobytes())
@@ -150,21 +152,20 @@ def test_map_overflow_retry(fmt, monkeypatch):
         ref[p] = BASES[(np.searchsorted(BASES, ref[p]) + 1) % 4]
     ref, query = bytes(ref), bytes(query)
     tidx, jidx = _both_indexes(query, k)
-    raised = []
-    real = device_map.map_devref_finish
+    grown = []
+    real = device_map.Caps.grown
 
-    def spy(*a, **kw):
-        try:
-            return real(*a, **kw)
-        except device_map.DevRefOverflow as o:
-            raised.append((o.need_d, o.need_g, a[11], a[12]))
-            raise
+    def spy(caps, *needs):
+        grown.append((caps, needs))
+        return real(caps, *needs)
 
-    monkeypatch.setattr(tapi, "map_devref_finish", spy)
+    monkeypatch.setattr(device_map.Caps, "grown", spy)
+    reset_stats()
     got = kbo_tpu_torch.map_(ref, tidx, _opts(kbo_tpu_torch, fmt), device="cpu")
-    assert len(raised) == 1
-    need_d, need_g, cap_d, cap_g = raised[0]
-    assert cap_d == 256 and cap_g == 256 and need_d > 256
+    assert len(grown) == 1
+    assert get_stats().as_dict()["map_overflow_retries"] == 1
+    caps, (need_d, need_g, _) = grown[0]
+    assert caps.d == 256 and caps.g == 256 and need_d > 256
     assert got == japi.map_batch([ref], jidx, _opts(kbo_tpu, fmt))[0]
 
 
@@ -178,20 +179,28 @@ def test_map_run_budget_reassembly(monkeypatch):
     ref = bytes(ref)
     tidx, _ = _both_indexes(query, 31)
     want = kbo_tpu_torch.map_(ref, tidx, _opts(kbo_tpu_torch, True), device="cpu")
-    caps = []
-    real = tmap.assemble_map_prio_core
+    caps, runs = [], []
+    real_assemble = tmap.assemble_map_prio_core
+    real_fetch = tmap.fetch_delta_runs_extras
+    real_start = device_map.start_caps
 
-    def spy(*a):
+    def assemble(*a):
         caps.append(a[-1])
-        return real(*a)
+        return real_assemble(*a)
 
-    monkeypatch.setattr(device_map, "assemble_map_prio_core", spy)
-    monkeypatch.setattr(
-        device_map, "_pow2_cap", lambda n, lo=256: 10 if n > 100 else max(10, n)
-    )
+    def fetch(*a):
+        out = real_fetch(*a)
+        runs.append(int(out[3, 0]))
+        return out
+
+    monkeypatch.setattr(device_map, "assemble_map_prio_core", assemble)
+    monkeypatch.setattr(device_map, "fetch_delta_runs_extras", fetch)
+    monkeypatch.setattr(device_map, "start_caps",
+                        lambda L, q: replace(real_start(L, q), r=10))
     got = kbo_tpu_torch.map_(ref, tidx, _opts(kbo_tpu_torch, True), device="cpu")
     assert got == want
-    assert len(caps) == 2 and caps[0] == 10 and 10 < caps[1] <= 100
+    assert len(runs) == 2 and runs[0] == runs[1] > 10
+    assert caps == [10, device_map._pow2_cap(runs[0])]
 
 
 def test_map_chunked_sweep_equals_single_shot(monkeypatch):

@@ -3,14 +3,16 @@
 MapOpts(), against kbo_tpu's, on the CPU: four contigs of varying length
 (the tagged variant join), insertions in the indexed side, and a dense-SNP
 contig (about 200 drops) whose first capacities the port is made to
-undersize, so that its DevRefOverflow retry runs with the refinement on.
+undersize, so that its capacity retry runs with the refinement on.
 """
+
+from dataclasses import replace
 
 import numpy as np
 import torch
 
-from kbo_tpu_torch import api as tapi
 from kbo_tpu_torch.refine import device_map
+from kbo_tpu_torch.utils.stats import get_stats, reset_stats
 from test_torch_map_devref import map_both
 
 torch.set_num_threads(2)
@@ -48,21 +50,20 @@ def test_devref_overflow_retry(monkeypatch):
     query = bytearray(ref)
     for p in range(200, n - 200, 40):
         query[p] = BASES[rng.integers(0, 4)]
-    raised = []
-    real = device_map.map_devref_finish
+    grown = []
+    real_grown = device_map.Caps.grown
+    real_start = device_map.start_caps
 
-    def spy(*a, **kw):
-        try:
-            return real(*a, **kw)
-        except device_map.DevRefOverflow as o:
-            raised.append(o.need_d)
-            raise
+    def spy(caps, *needs):
+        grown.append(needs[0])
+        return real_grown(caps, *needs)
 
-    monkeypatch.setattr(tapi, "map_devref_finish", spy)
+    monkeypatch.setattr(device_map.Caps, "grown", spy)
     # first capacities of 64 slots in the port (kbo_tpu keeps its 256)
-    monkeypatch.setattr(
-        tapi, "_pow2_cap", lambda n, lo=256: device_map._pow2_cap(n, lo=64)
-    )
+    monkeypatch.setattr(device_map, "start_caps",
+                        lambda L, q: replace(real_start(L, q), d=64, g=64))
+    reset_stats()
     got, want = map_both([ref], bytes(query), 31)
     assert got == want
-    assert len(raised) == 1 and raised[0] > 64
+    assert len(grown) == 1 and grown[0] > 64
+    assert get_stats().as_dict()["map_overflow_retries"] == 1

@@ -3,9 +3,10 @@ map_batch_2d_sharded (contigs split over ``data``, the key table
 prefix-sharded over ``model``) held against kbo_tpu's on a 2 x 4 JAX mesh
 over the 8 CPU devices that tests/conftest.py gives JAX and against the
 port's single-device map_batch, a low-identity input on which both return
-None, the placement of one key-table copy per device, and the sharded
-refinement cores (sharded_score_gaps, sharded_resolve_variants) against
-the single table's. Every comparison is exact.
+None, the placement of one key-table copy per device, and the
+refinement's two operations over the sharded table (refine.device_map.
+KeyTable over a model group) against the single table's cores. Every
+comparison is exact.
 """
 
 import jax
@@ -22,6 +23,7 @@ from kbo_tpu_torch import api as tapi
 from kbo_tpu_torch import engine as tengine
 from kbo_tpu_torch.kernels import refine as tref
 from kbo_tpu_torch.parallel import mesh as tmesh
+from kbo_tpu_torch.refine.device_map import KeyTable
 from kbo_tpu_torch.utils.stats import get_stats, reset_stats
 
 
@@ -39,12 +41,13 @@ def case_2d():
 
 
 def test_sharded_refinement_cores_equal_single_table(case_2d):
-    """sharded_score_gaps and sharded_resolve_variants over 3 shards on the
-    candidates of three contigs at k = 51 equal the single table's
-    score_gaps_core (with the chain table, and with the search loop; a
-    2-lane budget that flags gaps for the host too) and
-    resolve_variants_core, output for output (the float64 acceptance
-    included, as tests/test_torch_refine.py::test_score_gaps_equal)."""
+    """The gap scoring and variant resolution of a KeyTable over 3 shards
+    (the index-sharded map's model group) on the candidates of three
+    contigs at k = 51 equal the single table's score_gaps_core (with the
+    chain table, and with the search loop; a 2-lane budget that flags gaps
+    for the host too) and resolve_variants_core, output for output (the
+    float64 acceptance included, as
+    tests/test_torch_refine.py::test_score_gaps_equal)."""
     from kbo_tpu_torch.index.encode import encode_ascii
     from kbo_tpu_torch.kernels import mapsweep as tmap
     from kbo_tpu_torch.ops.derandomize import random_match_threshold
@@ -65,11 +68,11 @@ def test_sharded_refinement_cores_equal_single_table(case_2d):
                                          k - t + 1)
     sidx = tmesh.Sharded3Index(t_idx, tmesh.make_mesh(3, axis="model",
                                                       device="cpu"))
+    table = KeyTable(sidx.group())
     gap_args = (ref_mat, len_t, p["gap_start"], p["gap_end_at"], p["grid"], t)
     bound = tref.prob_bound(1e-7)
     for cap_ext in (256, 2):
-        got = tmesh.sharded_score_gaps(sidx, *gap_args, bound, k, cap,
-                                       cap_ext)
+        got = table.score_gaps(*gap_args, k, cap, cap_ext, bound)
         for ext_tab in (tref.get_ext_table(dev), None):
             want = tref.score_gaps_core(dev.keys3, *gap_args, k, cap, cap_ext,
                                         ext_tab, bound)
@@ -78,7 +81,7 @@ def test_sharded_refinement_cores_equal_single_table(case_2d):
     seq_words = tref.seq_keys3_tagged_core(codes_t, k)
     var_args = (seq_words, codes_t, ref_mat, sweep[0], len_t, p["drop_pos"],
                 p["apos"], p["arow"], t, k, cap)
-    got = tmesh.sharded_resolve_variants(sidx, *var_args, d_lo=t - 1)
+    got = table.resolve_variants(*var_args[1:], t - 1)
     want = tref.resolve_variants_core(dev.keys3, *var_args, d_lo=t - 1)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert int(got[2]) > 0

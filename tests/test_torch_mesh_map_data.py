@@ -1,4 +1,4 @@
-"""The port's contig-sharded map (kbo_tpu_torch.refine.device_map.
+"""The port's contig-sharded map (kbo_tpu_torch.parallel.mesh.
 map_devref_data_sharded), its degrade to the classic mesh sweep, and the
 classic mesh route at k >= 128, with api.map_batch's choice of each, on the
 CPU.
@@ -23,7 +23,6 @@ from kbo_tpu_torch import api as tapi
 from kbo_tpu_torch.index.encode import encode_ascii
 from kbo_tpu_torch.ops.derandomize import random_match_threshold
 from kbo_tpu_torch.parallel import mesh as tmesh
-from kbo_tpu_torch.refine import device_map as tdm
 from kbo_tpu_torch.utils.stats import get_stats, reset_stats
 
 torch.set_num_threads(2)
@@ -71,7 +70,7 @@ def test_map_devref_data_sharded(case31):
                                         jmesh.make_mesh())
     assert want8 == want
     reset_stats()
-    got8 = tdm.map_devref_data_sharded(refs, t_idx, codes, t_mo, thr,
+    got8 = tmesh.map_devref_data_sharded(refs, t_idx, codes, t_mo, thr,
                                        tmesh.make_mesh(8, device="cpu"))
     assert got8 == want8
     assert get_stats().as_dict()["gaps_filled"] > 0
@@ -91,7 +90,7 @@ def test_data_sharded_degrades_to_the_classic_sweep(case31):
     refs[2] = bytes(r2[:5000])
     thr = random_match_threshold(31, t_idx.n_kmers, 4, t_mo.max_error_prob)
     m3 = tmesh.make_mesh(3, device="cpu")
-    assert tdm.map_devref_data_sharded(
+    assert tmesh.map_devref_data_sharded(
         refs, t_idx, [encode_ascii(r) for r in refs], t_mo, thr, m3) is None
     got, route = _routed(refs, t_idx, t_mo, m3)
     assert route == ["mesh_data_degraded", "mesh_route_classic"]
