@@ -73,7 +73,7 @@ Phases, each printed as it passes; any failure exits non-zero:
    derandomize_translate's [60 000, 1024] rows) against their plain
    versions, bit for bit;
 6. the call slice on the same pair: api.call at k=51 over the whole pair
-   (the drop scan, the anchor rounds' interval joins, the vs-sequence
+   (the drop scan, the anchor search's gated interval probe, the vs-sequence
    join), also with add_revcomp, and at k=254 on a 400 kbase slice (27 key
    rows in the interval merge, 26 words in the vs-sequence scans), each
    equal to the port's own device="cpu" run of the whole input, with the
@@ -82,7 +82,7 @@ Phases, each printed as it passes; any failure exits non-zero:
    variants); api.build_device on the indexed side and phase 4's batch
    through api.find_batch against it, RLE for RLE equal to the CPU run;
    launch counts read around one call of each (a call: 2 merges plus one
-   per anchor round, 6 scans); then the kernels at the shapes these calls
+   per anchor probe, 6 scans); then the kernels at the shapes these calls
    gave them (captured from the calls: merge_path at the interval probe,
    7 and 27 key rows, and at the sequence index's join; clamp_scan at the
    vs-sequence join, 6 and 26 words, and at the sequence index's join;
@@ -1558,7 +1558,7 @@ def main() -> int:
             k=k, build_select=True, add_revcomp=rc))
 
     call_names = [(ms_mod, "merge_path"), (ms_mod, "clamp_scan"),
-                  (ms_mod, "intervals3_windows_core"),
+                  (ms_mod, "_intervals_from_keys"),
                   (engine_mod, "compute_ms_values_vs_seq_device")]
     t0 = time.perf_counter()
     reset_counts()
@@ -1566,8 +1566,8 @@ def main() -> int:
     call_gpu, call_args = capture(
         lambda: api.call(index, ref, copts(), device=cuda), call_names)
     rounds = get_stats().as_dict()["call_anchor_rounds"]
-    # the row's join, one interval join per anchor round, the 2-bit k-mer
-    # batch; two scans each for the row's join, the k-mer batch and the
+    # the row's join, one interval join per anchor probe (counted as
+    # call_anchor_rounds), the 2-bit k-mer batch; two scans each for the row's join, the k-mer batch and the
     # vs-sequence join
     CALL = {**ONE_JOIN, "merge_path": 2 + rounds, "clamp_scan": 6,
             "derandomize_translate": 0}
@@ -1576,7 +1576,7 @@ def main() -> int:
     call_rc_gpu = api.call(index, ref, copts(rc=True), device=cuda)
     read_counts("call add_revcomp", CALL)
     print(f"call on the card: {time.perf_counter() - t0:.2f}s (first runs), "
-          f"{rounds} anchor rounds, launches per call "
+          f"{rounds} anchor probes, launches per call "
           f"{json.dumps(launches['call'])}", flush=True)
     t0 = time.perf_counter()
     for label, got, rc in (("", call_gpu, False),
@@ -1636,7 +1636,7 @@ def main() -> int:
     if not call254_gpu:
         raise SystemExit("FAIL call at k=254 found no variant")
     print(f"call at k=254 on {n254} bases: {len(call254_gpu)} variants, "
-          f"{rounds254} anchor rounds, equal to the CPU run", flush=True)
+          f"{rounds254} anchor probes, equal to the CPU run", flush=True)
 
     # build_device + find_batch: phase 4's batch against the indexed side's
     # own sorted window keys
@@ -1690,13 +1690,14 @@ def main() -> int:
     check_dt(f"seq-index batch {seq_ms.shape[0]}x{seq_ms.shape[1]} "
              f"(strided rows)", seq_ms, seq_tl)
     # merge="bitonic" in the interval probe (W + 2 = 8 operand rows)
-    iv_in = call_args["intervals3_windows_core"][0]
+    # the call's anchor probe: (keys3, gathered key columns, ms)
+    iv_in = call_args["_intervals_from_keys"][0]
     reset_counts()
-    iv_bit = ms_mod.intervals3_windows_core(*iv_in, merge="bitonic")
+    iv_bit = ms_mod._intervals_from_keys(*iv_in, merge="bitonic")
     launches["intervals merge=bitonic"] = read_counts(
         "intervals merge=bitonic",
         {**only_bitonic, "clamp_scan": 0})
-    iv_path = ms_mod.intervals3_windows_core(*iv_in)
+    iv_path = ms_mod._intervals_from_keys(*iv_in)
     if not all(torch.equal(x, y) for x, y in zip(iv_bit, iv_path)):
         raise SystemExit("FAIL the interval probe with merge=bitonic differs "
                          "from merge=path")
@@ -1706,8 +1707,8 @@ def main() -> int:
     got = bitonic_merge(*bitonic_in["interval k=51"])
     check("bitonic_merge", f"interval k=51 W={ak.shape[0]} M={got.shape[1]}",
           [got], [bitonic_merge_plain(*bitonic_in["interval k=51"])])
-    print(f"merge=bitonic: the interval probe over {iv_in[1].shape[0]} "
-          f"windows equals merge=path ({ak.shape[0] + 1} operand rows, "
+    print(f"merge=bitonic: the interval probe over {iv_in[1].shape[1]} "
+          f"positions equals merge=path ({ak.shape[0] + 1} operand rows, "
           f"{passes_of(got.shape[1], ak.shape[0] + 1, False)})", flush=True)
     del got, iv_bit, iv_path
     vs_seq_in = call_args["compute_ms_values_vs_seq_device"][0]
@@ -2072,7 +2073,7 @@ def main() -> int:
                              "MS")
 
         def call_counts(got, st):
-            # the row's join, one interval join per anchor round, the k-mer
+            # the row's join, one interval join per anchor probe, the k-mer
             # batch on every shard; two scans each for the row's join and
             # the k-mer batches, two for the vs-sequence join
             rounds = st["call_anchor_rounds"]
@@ -2245,7 +2246,7 @@ def main() -> int:
     def two_proc_want(name, row):
         """One process's launches in the two-process run: its own 2 shards'
         joins, and the stages each process runs once (the sequence-sharded
-        postprocess, call's row join and anchor rounds, the index-sharded
+        postprocess, call's row join and anchor probe, the index-sharded
         map's finish), or per local data row."""
         if name == "map_batch([genome])":
             return {"merge_path": 4, "clamp_scan": 8,
@@ -2960,8 +2961,7 @@ def main() -> int:
     print(f"{tag} call add_revcomp: {t_call_rc:.3f} ms "
           f"({n / t_call_rc * 1e3 / 1e6:.2f} Mbases/s)", flush=True)
     # the device stages of the call alone (CUDA events): the MS row, the
-    # drop scan on it, one interval join (the first anchor round's
-    # probe), the two k-mer batches
+    # drop scan on it, the anchor probe, the two k-mer batches
     dq = device_index(index, cuda)
     ms_row_call = ms_mod.query_ms_row_device(dq, codes)
     d_call = random_match_threshold(K, index.n_kmers, 4, 1e-7)
@@ -2971,8 +2971,8 @@ def main() -> int:
          lambda: ms_mod.query_ms_row_device(dq, codes)),
         ("drop scan (ms_drops_device, fetch included)",
          lambda: ms_mod.ms_drops_device(ms_row_call, d_call)),
-        (f"interval join of the first round ({iv_in[1].shape[0]} windows)",
-         lambda: ms_mod.intervals3_windows_core(*iv_in)),
+        (f"anchor probe ({iv_in[1].shape[1]} gated positions)",
+         lambda: ms_mod._intervals_from_keys(*iv_in)),
         (f"2-bit k-mer batch ({len(kmer_batch)} k-mers)",
          lambda: compute_ms_values_many_device(index, kmer_batch, cuda)),
         (f"vs-sequence join ({len(kmer_batch)} k-mers against {n} "

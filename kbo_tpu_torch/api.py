@@ -166,11 +166,12 @@ def call(sbwt_query: SbwtIndex, ref_seq: bytes,
 
     A reference of at least 1024 bases takes the index-free device path:
     the MS row of the streamed reference stays on the device, its drops
-    are compacted there, the anchor search reads sparse intervals against
-    that row, and the reference k-mers join against the reference's own
-    window keys (with its reverse complement after a separator when
-    ``add_revcomp``) instead of an index built here. A shorter one builds
-    its index on the host, as the reference does.
+    are compacted there, the anchor search probes the drops' candidates
+    in one gated interval probe (a slab of drops each) against that row
+    and the resident code buffer, and the reference k-mers join against
+    the reference's own window keys (with its reverse complement after a
+    separator when ``add_revcomp``) instead of an index built here. A
+    shorter one builds its index on the host, as the reference does.
 
     With a ``data`` ``mesh`` the k-mer re-runs against the index shard over
     it and the other phases run on its first local device (no ``device``
@@ -183,6 +184,7 @@ def call(sbwt_query: SbwtIndex, ref_seq: bytes,
         device = mesh.devices[mesh.local_shards[0]]
     opts = call_opts or CallOpts()
     ref_seq = bytes(ref_seq)
+    resident = None
     with stage("call", bases=len(ref_seq)):
         if len(ref_seq) >= 1024:
             if opts.sbwt_build_opts.k != sbwt_query.k:
@@ -193,17 +195,17 @@ def call(sbwt_query: SbwtIndex, ref_seq: bytes,
             ref_codes = encode_ascii(ref_seq)
             if noisy_ms is None and drops is None and ivals is None:
                 # a standalone call: the drops are compacted on the device
-                # and only their positions cross; the device row feeds the
-                # sparse interval provider
+                # and only their positions cross; the MS row and the code
+                # buffer it was computed from stay there for the anchor
+                # probe
                 d = derandomize.random_match_threshold(
                     sbwt_query.k, sbwt_query.n_kmers, 4, opts.max_error_prob
                 )
                 with stage("call_drops"):
-                    row = ms_kernels.query_ms_row_device(
+                    resident = ms_kernels.query_ms_row_and_buffer_device(
                         engine.device_index(sbwt_query, device), ref_codes
                     )
-                    drops = ms_kernels.ms_drops_device(row, d)
-                ivals = engine.SparseIntervals(sbwt_query, ref_codes, ms=row)
+                    drops = ms_kernels.ms_drops_device(resident[0], d)
             if opts.sbwt_build_opts.add_revcomp:
                 sep = np.array([ms_kernels.INVALID], dtype=np.uint8)
                 ref_codes = np.concatenate(
@@ -223,6 +225,7 @@ def call(sbwt_query: SbwtIndex, ref_seq: bytes,
             drops=drops,
             anchors=anchors,
             anchor_rows=anchor_rows,
+            resident=resident,
             ms_many=None if mesh is None else functools.partial(
                 pmesh.ms_values_many_sharded, mesh=mesh),
             device=device,

@@ -798,11 +798,21 @@ def query_ms_row_device(index, codes: np.ndarray, device=None):
     interval probes) fetch compacted results instead of the full vector.
     ``index`` is a :class:`DeviceIndex` or an :class:`SbwtIndex` to upload
     to ``device``."""
+    return query_ms_row_and_buffer_device(index, codes, device)[0]
+
+
+def query_ms_row_and_buffer_device(index, codes: np.ndarray, device=None):
+    """(MS row, code buffer): the row of :func:`query_ms_row_device` and
+    the uint8 flat buffer it was computed from (:func:`make_flat_buffer`:
+    k-1 INVALID, the codes, INVALID up to the bucket), both resident.
+    Query position j is buffer position k-1+j, so the buffer's 3-bit
+    window keys (:func:`pack_windows_3bit`) at k-1+j are those of the
+    query's window ending at j."""
     dev = index if isinstance(index, DeviceIndex) else DeviceIndex(index, device)
     buf, L = make_flat_buffer(np.asarray(codes), dev.k)
-    ms = ms2_core(dev.keys2, dev.cap2, torch.from_numpy(buf).to(dev.device),
-                  dev.k)
-    return ms[dev.k - 1 : dev.k - 1 + L]
+    buf = torch.from_numpy(buf).to(dev.device)
+    ms = ms2_core(dev.keys2, dev.cap2, buf, dev.k)
+    return ms[dev.k - 1 : dev.k - 1 + L], buf
 
 
 def ms_drops_device(ms_row, d: int) -> np.ndarray:

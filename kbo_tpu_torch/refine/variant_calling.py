@@ -23,8 +23,14 @@ import torch
 from kbo_tpu_torch import engine
 from kbo_tpu_torch.index.encode import CODE_TO_ASCII, DOLLAR, encode_ascii
 from kbo_tpu_torch.index.sbwt import SbwtIndex
+from kbo_tpu_torch.kernels import ms as ms_kernels
 from kbo_tpu_torch.ops.derandomize import random_match_threshold
 from kbo_tpu_torch.utils.stats import get_stats, stage
+
+# the most candidate positions one anchor probe of the device branch takes
+# (:func:`_anchors_device` splits the drops into slabs of at most this
+# many candidates; 2 * this + the index's rows stays under 2**31)
+_ANCHOR_SLAB = 1 << 22
 
 
 @dataclasses.dataclass
@@ -140,6 +146,7 @@ def call_variants(
     drops: np.ndarray | None = None,
     anchors: np.ndarray | None = None,
     anchor_rows: np.ndarray | None = None,
+    resident=None,
     ms_many=None,
     device=None,
 ) -> list[Variant]:
@@ -153,9 +160,14 @@ def call_variants(
        or ``drops`` given by the caller, or one 2-bit join here;
     2. per drop, the first anchor j in (i, i+k] with ms[j] >= d and a
        unique colex interval: given (``anchors`` / ``anchor_rows``, aligned
-       with ``drops``, -1 = unanchored), or from ``ivals`` (an
-       :class:`kbo_tpu_torch.engine.SparseIntervals`) in rounds of 8
-       offsets, or from one sparse interval probe over all k offsets;
+       with ``drops``, -1 = unanchored), or on the device from
+       ``resident`` = (the query's int32 MS row, the uint8 flat code
+       buffer it was computed from, both resident; see
+       :func:`kbo_tpu_torch.kernels.ms.query_ms_row_and_buffer_device`)
+       in one gated probe per slab of drops (:func:`_anchors_device`), or
+       from ``ivals`` (an :class:`kbo_tpu_torch.engine.SparseIntervals`)
+       in rounds of 8 offsets, or from one sparse interval probe over all
+       k offsets;
     3. the query k-mer ending at each anchor and the reference k-mer of its
        row re-run against the other side, both batches on the device and
        fetched together as ONE uint8 transfer, then the vectorized case
@@ -169,8 +181,10 @@ def call_variants(
     re-runs join against the sequence's own window keys). ``device`` is the
     device of the joins (None: the CUDA card). The host clock of each phase
     goes to the run's stats (``call_drops``, ``call_anchors`` with the
-    ``call_anchor_rounds`` counter and, inside it, ``call_anchor_fetch``
-    around the rounds' interval reads, ``call_kmer_joins``,
+    ``call_anchor_rounds`` counter (a round or a device probe each), the
+    ``call_anchor_probe_positions`` counter (the device probes' gated
+    positions) and, inside it, ``call_anchor_fetch`` around the anchor
+    search's fetches, ``call_kmer_joins``,
     ``call_resolve``); the first three end in a fetch, so they include
     their device work.
     """
@@ -198,7 +212,7 @@ def call_variants(
     with stage("call_anchors"):
         sites, anchors, anchor_rows = _anchors(
             sbwt_ref, codes, n, k, d, drops, ms, ivals, anchors, anchor_rows,
-            device,
+            resident, device,
         )
     if sites.size == 0:
         return []
@@ -256,15 +270,19 @@ def call_variants(
 
 
 def _anchors(sbwt_ref, codes, n: int, k: int, d: int, drops, ms, ivals,
-             anchors, anchor_rows, device):
+             anchors, anchor_rows, resident, device):
     """Phase 2 of :func:`call_variants`: (sites, anchors, anchor rows) of
     the drops that anchor: the first j in (i, i+k] with ms[j] >= d and a
-    unique interval, read sparsely at the candidate windows only."""
+    unique interval, read sparsely at the candidate windows only. The
+    branch follows what the caller holds: anchors, a resident row and
+    code buffer, an interval provider, or neither."""
     anchor = np.full(drops.size, -1, dtype=np.int64)
     pre_rows = None
     if anchors is not None:
         anchor = np.asarray(anchors, dtype=np.int64)
         pre_rows = np.asarray(anchor_rows, dtype=np.int64)
+    elif resident is not None:
+        anchor, pre_rows = _anchors_device(sbwt_ref, *resident, drops, k, d)
     elif ivals is not None:
         # rounds of 8 offsets: almost every drop anchors within a few
         # positions (MS recovers right after the variant), so only the
@@ -320,6 +338,78 @@ def _anchors(sbwt_ref, codes, n: int, k: int, d: int, drops, ms, ivals,
             rows = ivals.get_batch(anchor[sel])[:, 0]
         return sites, anchor[sel], rows
     return sites, anchor[sel], cand_iv[np.searchsorted(cand, anchor[sel]), 0]
+
+
+def _anchors_device(sbwt_ref, ms_row, code_buf, drops, k: int, d: int):
+    """(anchor or -1, its row or -1) int64 [D] per drop, searched on the
+    device over the resident MS row (int32 [n]) and code buffer (k-1
+    INVALID, then the codes).
+
+    The candidates j = drop + off, off in 1..k, form [D, k] on the device;
+    those with j < n and ms[j] >= d (the only ones that can anchor) are
+    compacted and probed for their colex intervals in one
+    :func:`kbo_tpu_torch.kernels.ms._intervals_from_keys` a slab of drops
+    (at most ``_ANCHOR_SLAB`` candidates), their keys gathered from one
+    3-bit pack of the code buffer. A drop's anchor is its first candidate
+    with a unique interval, its row that interval's start. Two fetches
+    whatever the number of drops: the gated counts (sizing the
+    compactions), then one stacked int32 [2, D].
+    """
+    device = ms_row.device
+    keys3 = engine.device_index(sbwt_ref, device).keys3
+    n, D = ms_row.shape[0], drops.size
+    none = np.full(D, -1, dtype=np.int64)
+    if D == 0:
+        return none, none
+    drops_t = torch.from_numpy(drops.astype(np.int32)).to(device)
+    offs = torch.arange(1, k + 1, dtype=torch.int32, device=device)
+    per = max(1, _ANCHOR_SLAB // k)
+    slabs = [(s, min(s + per, D)) for s in range(0, D, per)]
+
+    def gated(s, e):
+        j = (drops_t[s:e, None] + offs[None, :]).reshape(-1)
+        ms_j = ms_row[torch.clamp(j, max=n - 1).long()]
+        return j, ms_j, (j < n) & (ms_j >= d)
+
+    counts = torch.stack([gated(s, e)[2].sum() for s, e in slabs])
+    with stage("call_anchor_fetch"):
+        counts = counts.cpu().tolist()
+    if not any(counts):
+        return none, none
+    words = ms_kernels.pack_windows_3bit(code_buf, k)
+    out = torch.full((2, D), -1, dtype=torch.int32, device=device)
+    for (s, e), G in zip(slabs, counts):
+        if G == 0:
+            continue
+        j, ms_j, ok = gated(s, e)
+        # compaction to the G gated slots, whose count is known (no
+        # sync): every other slot scatters to the spare entry G
+        dest = torch.where(ok, torch.cumsum(ok, 0) - 1, G)
+        slot = torch.zeros(G + 1, dtype=torch.int64, device=device)
+        slot.scatter_(0, dest, torch.arange(j.shape[0], device=device))
+        slot = slot[:G]
+        jg = j[slot].long()
+        l, r = ms_kernels._intervals_from_keys(
+            keys3, words[:, jg + (k - 1)], ms_j[slot]
+        )
+        get_stats().add("call_anchor_rounds")
+        get_stats().add("call_anchor_probe_positions", G)
+        good = torch.zeros(j.shape[0], dtype=torch.bool, device=device)
+        good.scatter_(0, slot, r - l == 1)
+        rows = torch.zeros(j.shape[0], dtype=torch.int32, device=device)
+        rows.scatter_(0, slot, l)
+        first = torch.where(
+            good.reshape(-1, k), offs[None, :] - 1, k
+        ).amin(dim=1)
+        has = first < k
+        row = rows.reshape(-1, k).gather(
+            1, torch.clamp(first, max=k - 1).long()[:, None]
+        )[:, 0]
+        out[0, s:e] = torch.where(has, drops_t[s:e] + first + 1, -1)
+        out[1, s:e] = torch.where(has, row, -1)
+    with stage("call_anchor_fetch"):
+        res = out.cpu().numpy().astype(np.int64)
+    return res[0], res[1]
 
 
 def _rightmost_peaks(ms: np.ndarray, d: int) -> np.ndarray:

@@ -189,7 +189,7 @@ def _pair(n=8000):
 @pytest.mark.parametrize("k,add_revcomp", [(51, False), (51, True),
                                            (254, False)])
 def test_call_vs_seq_pair(k, add_revcomp):
-    """The device path of call (drop scan, sparse interval rounds, the
+    """The device path of call (drop scan, the gated anchor probe, the
     index-free join against the reference, with its reverse complement
     after a separator when add_revcomp) equals kbo_tpu's; k = 254 puts 27
     key rows through the interval merge and 26 words through the

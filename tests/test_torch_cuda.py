@@ -442,8 +442,9 @@ def _call_pair(n=8000):
 @pytest.mark.parametrize("k,add_revcomp", [(51, False), (51, True),
                                            (254, False)])
 def test_call_on_card_equals_cpu(cuda, k, add_revcomp):
-    """call on the card (drop scan, interval rounds, the vs-sequence join)
-    gives the CPU run's variants; every merge and scan ran as a kernel."""
+    """call on the card (drop scan, the gated anchor probe, the
+    vs-sequence join) gives the CPU run's variants; every merge and scan
+    ran as a kernel."""
     query, ref = _call_pair()
     bo = kbo_tpu_torch.BuildOpts(k=k, build_select=True,
                                  add_revcomp=add_revcomp)
@@ -451,12 +452,76 @@ def test_call_on_card_equals_cpu(cuda, k, add_revcomp):
     opts = kbo_tpu_torch.CallOpts(sbwt_build_opts=bo)
     merge_path.launches = clamp_scan.launches = 0
     got = kbo_tpu_torch.call(idx, ref, opts, device=cuda)
-    # the row's join, >= 1 interval round, the two phase-3 batches
+    # the row's join, >= 1 anchor probe, the two phase-3 batches
     assert merge_path.launches >= 3 and clamp_scan.launches >= 6
     want = kbo_tpu_torch.call(idx, ref, opts, device="cpu")
     assert [(v.query_pos, v.query_chars, v.ref_chars) for v in got] == [
         (v.query_pos, v.query_chars, v.ref_chars) for v in want]
     assert len(got) == 3
+
+
+def _anchor_pair(n):
+    """A draft of n bases and a reference with a SNP every 997 bases,
+    1-10 base indels every 20 kbase and two 5 kbase blocks the draft
+    lacks (their drops never anchor)."""
+    rng = np.random.default_rng(24)
+    draft = BASES[rng.integers(0, 4, n)].tobytes()
+    ref = bytearray(draft)
+    for p in range(1000, n - 1000, 997):
+        ref[p] = BASES[(np.searchsorted(BASES, ref[p]) + 1) % 4]
+    # from the far end, so that the planted positions hold
+    for i, p in enumerate(range(n - 3000, 3000, -20_011)):
+        size = 1 + i % 10
+        if i % 2:
+            del ref[p : p + size]
+        else:
+            ref[p:p] = BASES[rng.integers(0, 4, size)].tobytes()
+    for p in (0.6 * n, 0.25 * n):
+        ref[int(p):int(p)] = BASES[rng.integers(0, 4, 5000)].tobytes()
+    return draft, bytes(ref)
+
+
+def test_call_device_anchors_on_card(cuda):
+    """The anchor search of a standalone call on the card (one gated probe
+    over the resident MS row and code buffer) against the interval
+    provider's rounds on the same card, on a 1 Mbase contig: equal sites,
+    anchors, rows and variants, in one probe."""
+    from kbo_tpu_torch import api, engine
+    from kbo_tpu_torch.kernels import ms as tms
+    from kbo_tpu_torch.ops.derandomize import random_match_threshold
+    from kbo_tpu_torch.refine import variant_calling as tvc
+    from kbo_tpu_torch.utils.stats import get_stats, reset_stats
+
+    k = 51
+    draft, ref = _anchor_pair(1_000_000)
+    bo = kbo_tpu_torch.BuildOpts(k=k, build_select=True)
+    idx = api.build_device([draft], bo, full=True, device=cuda)
+    codes = encode_ascii(ref)
+    d = random_match_threshold(k, idx.n_kmers, 4, 1e-7)
+    row, buf = tms.query_ms_row_and_buffer_device(idx, codes)
+    drops = tms.ms_drops_device(row, d)
+    n = len(ref)
+    reset_stats()
+    merge_path.launches = 0
+    on_card = tvc._anchors(idx, codes, n, k, d, drops, None, None, None,
+                           None, (row, buf), cuda)
+    st = get_stats().as_dict()
+    assert merge_path.launches == st["call_anchor_rounds"] == 1
+    assert st["call_anchor_fetch_calls"] == 2
+    ivals = engine.SparseIntervals(idx, codes, ms=row)
+    rounds = tvc._anchors(idx, codes, n, k, d, drops, None, ivals, None,
+                          None, None, cuda)
+    for x, y in zip(on_card, rounds):
+        np.testing.assert_array_equal(x, y)
+    snps = len(range(1000, len(draft) - 1000, 997))
+    assert 0.9 * snps < on_card[0].size < drops.size
+    got = tvc.call_variants(idx, codes, ref, 1e-7, drops=drops,
+                            resident=(row, buf), device=cuda)
+    want = tvc.call_variants(idx, codes, ref, 1e-7, drops=drops,
+                             ivals=ivals, device=cuda)
+    assert [(v.query_pos, v.query_chars, v.ref_chars) for v in got] == [
+        (v.query_pos, v.query_chars, v.ref_chars) for v in want]
+    assert len(got) > 0.9 * snps
 
 
 def _probe_windows(k, seed=51):

@@ -162,9 +162,19 @@ def test_find_batch_spans_on_a_sequence_index():
     assert d["find_batch_bases"] == sum(len(g) for g in genes)
 
 
-def test_call_spans_and_anchor_rounds():
+def test_call_spans_and_anchor_rounds(monkeypatch):
     """A SNP, a 2-base deletion and a 2-base insertion in 3 kbase at
     k = 51 (tests/test_torch_call.py's pair, shorter)."""
+    from kbo_tpu_torch.kernels import ms as tms
+
+    probes = []
+    real = tms._intervals_from_keys
+
+    def counted(keys3, q_words, ms, *a, **kw):
+        probes.append(q_words.shape[1])
+        return real(keys3, q_words, ms, *a, **kw)
+
+    monkeypatch.setattr(tms, "_intervals_from_keys", counted)
     rng = np.random.default_rng(21)
     query = _random(rng, 3000)
     ref = bytearray(query)
@@ -180,6 +190,9 @@ def test_call_spans_and_anchor_rounds():
     assert len(variants) == 3
     assert _ran(CALL) == set(CALL)
     d = get_stats().as_dict()
-    assert d["call_anchor_rounds"] >= 1
-    # one fetch span a round, and one for the anchors' rows
-    assert d["call_anchor_fetch_calls"] == d["call_anchor_rounds"] + 1
+    # the standalone call's anchor search on the device: a probe a slab
+    # of drops (one here), the gated positions it took, and two fetch
+    # spans (the gated counts, then the anchors with their rows)
+    assert d["call_anchor_rounds"] == len(probes) == 1
+    assert d["call_anchor_probe_positions"] == sum(probes) > 0
+    assert d["call_anchor_fetch_calls"] == 2
